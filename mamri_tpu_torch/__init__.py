@@ -1,0 +1,42 @@
+"""mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu's scan -> pose path.
+
+`mamri_tpu` (JAX/Pallas) stays the reference; this package is held against
+it on identical inputs. It imports torch and numpy, never jax: the only
+imports it takes from `mamri_tpu` are the jax-free `mamri_tpu.api.types` and
+the robot definition read by file path (`mamri_tpu/resources/mamri_arm.json`).
+
+Layering mirrors `mamri_tpu`:
+  core/          4x4 algebra, robot model + FK, unit conversion
+  perception/    Volume, segmentation, and the hand-written CUDA kernels
+                 (`gpu_ops`, sources in `csrc/`) with their plain twins
+  registration/  L-shape triplet matching + Horn/Kabsch rigid fit
+  ik/            batched bounded Levenberg-Marquardt, full-chain pose IK
+  api/           MamriEngine (estimate_pose)
+
+Geometry runs in strict float32 on the card: both TF32 switches are turned
+off when the package is imported, for the reason the JAX package pins
+`Precision.HIGHEST` (a 10-bit mantissa rounds millimetre coordinates).
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+__all__ = ["MamriEngine", "RobotModel", "load_robot_model", "__version__"]
+
+_EXPORTS = {
+    "MamriEngine": "mamri_tpu_torch.api.engine",
+    "RobotModel": "mamri_tpu_torch.core.robot",
+    "load_robot_model": "mamri_tpu_torch.core.robot",
+}
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        import importlib
+
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module 'mamri_tpu_torch' has no attribute {name!r}")

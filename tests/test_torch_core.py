@@ -1,0 +1,108 @@
+"""The port's core (transforms, robot, units) and Volume against mamri_tpu.
+
+Inputs are made with numpy from a seed and handed to both packages.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mamri_tpu.core import robot as jrobot
+from mamri_tpu.core import transforms as jT
+from mamri_tpu.core.units import angles_to_steps as j_angles_to_steps
+from mamri_tpu.perception import volume as jvolume
+from mamri_tpu_torch.core import robot as trobot
+from mamri_tpu_torch.core import transforms as tT
+from mamri_tpu_torch.core.units import angles_to_steps as t_angles_to_steps
+from mamri_tpu_torch.perception import volume as tvolume
+
+
+@pytest.fixture(scope="module")
+def models():
+    return jrobot.load_robot_model(), trobot.load_robot_model()
+
+
+def test_zero_pose_link_heights(models):
+    _, model = models
+    tfs = trobot.fk_all_links(model, torch.zeros(6))
+    assert tfs[:, 2, 3].tolist() == [0.0, 20.0, 50.0, 200.0, 200.0, 355.0, 368.0, 439.0]
+
+
+def test_fk_matches_jax_for_random_angles(models):
+    jm, tm = models
+    rng = np.random.default_rng(0)
+    limits = np.asarray(jm.limits_rad)
+    base = (
+        np.asarray(jT.translate(jnp.asarray([-60.0, -120.0, 5.0])) @ jT.rot_x(-np.pi / 2) @ jT.rot_z(0.3))
+    ).astype(np.float32)
+    for _ in range(8):
+        a = rng.uniform(limits[:, 0], limits[:, 1]).astype(np.float32)
+        want = np.asarray(jrobot.fk_all_links(jm, jnp.asarray(a), jnp.asarray(base)))
+        got = trobot.fk_all_links(tm, torch.as_tensor(a), torch.as_tensor(base)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4)  # mm and unitless rotation entries
+        for ln in ("Baseplate", "Joint2", "Joint4", "Joint6"):
+            want_m = np.asarray(jrobot.marker_world_positions(jm, jnp.asarray(a), ln, jnp.asarray(base)))
+            got_m = trobot.marker_world_positions(tm, torch.as_tensor(a), ln, torch.as_tensor(base)).numpy()
+            np.testing.assert_allclose(got_m, want_m, atol=1e-4)
+
+
+def test_transforms_match_jax():
+    rng = np.random.default_rng(1)
+    thetas = rng.uniform(-np.pi, np.pi, 5).astype(np.float32)
+    for jf, tf in ((jT.rot_x, tT.rot_x), (jT.rot_y, tT.rot_y), (jT.rot_z, tT.rot_z)):
+        np.testing.assert_allclose(tf(torch.as_tensor(thetas)).numpy(), np.asarray(jf(jnp.asarray(thetas))), atol=1e-6)
+    v = rng.normal(size=(4, 3)).astype(np.float32) * 100
+    np.testing.assert_array_equal(tT.translate(torch.as_tensor(v)).numpy(), np.asarray(jT.translate(jnp.asarray(v))))
+    for code in (tT.AXIS_NONE, tT.AXIS_IS, tT.AXIS_PA, tT.AXIS_LR):
+        np.testing.assert_allclose(
+            tT.articulation_matrix(code, torch.tensor(0.7)).numpy(),
+            np.asarray(jT.articulation_matrix(code, jnp.float32(0.7))), atol=1e-6,
+        )
+
+
+def test_robot_model_from_numpy_equals_loaded(models):
+    jm, tm = models
+    crossed = trobot.robot_model_from_numpy(
+        np.asarray(jm.fixed_offsets), np.asarray(jm.limits_rad), np.asarray(jm.steps_per_rev),
+        np.asarray(jm.marker_local), np.asarray(jm.needle_tip), np.asarray(jm.needle_axis), jm.specs,
+    )
+    for name in ("fixed_offsets", "limits_rad", "steps_per_rev", "marker_local", "needle_tip", "needle_axis"):
+        assert torch.equal(getattr(crossed, name), getattr(tm, name)), name
+    assert crossed.specs == tm.specs
+    assert tm.link_names == jm.link_names and tm.articulated_links == jm.articulated_links
+
+
+def test_angles_to_steps_bit_equal(models):
+    jm, tm = models
+    rng = np.random.default_rng(2)
+    a = rng.uniform(-4.0, 4.0, (512, 6)).astype(np.float32)
+    a[:6] = 0.0
+    a[6, 0] = 2 * np.pi / 3332 * 7  # near an exact step boundary
+    want = np.asarray(j_angles_to_steps(jnp.asarray(a), jm.steps_per_rev))
+    got = t_angles_to_steps(torch.as_tensor(a), tm.steps_per_rev)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("noise", [0.0, 7.5])
+def test_synthetic_volume_bit_equal(noise):
+    kw = dict(
+        shape=(23, 17, 30), spacing=(1.5, 2.0, 1.25), fiducials_ras=np.array([[3.0, -2.0, 4.0], [-8.0, 5.0, -6.0]]),
+        fiducial_radius_mm=4.0, body_center_ras=[1.0, 2.0, -3.0], body_radii_mm=[9.0, 7.0, 11.0],
+        noise_sigma=noise, seed=3,
+    )
+    want = jvolume.synthetic_volume(**kw)
+    got = tvolume.synthetic_volume(**kw)
+    assert got.data.dtype == want.data.dtype
+    np.testing.assert_array_equal(got.data, want.data)
+    np.testing.assert_array_equal(got.spacing, want.spacing)
+    np.testing.assert_array_equal(got.origin, want.origin)
+
+
+def test_volume_keeps_compact_dtypes():
+    data = np.arange(24, dtype=">i2").reshape(2, 3, 4)
+    v = tvolume.Volume(data, (1, 1, 1), (0, 0, 0))
+    assert v.data.dtype == np.dtype("int16") and v.shape == (2, 3, 4)
+    assert tvolume.Volume(data.astype(np.float64), (1, 1, 1), (0, 0, 0)).data.dtype == np.float32

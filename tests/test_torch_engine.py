@@ -1,0 +1,221 @@
+"""The slice as a whole: the port's MamriEngine.estimate_pose against
+mamri_tpu's on the same synthetic scans (tests/test_engine.py's scene).
+
+Both engines run with `ik_restarts=0` (no random draws) unless a test hands
+the port JAX's exact draws. Tolerances: equal markers, blob counts, baseplate
+source and certificates; base_tf within 1e-4; J1-J3 within 1e-3 rad; the
+TCP within 0.05 mm (the wrist is bounded only by gauge freedom,
+docs/ARCHITECTURE.md section 4a); motor steps within +-1.
+"""
+
+import logging
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mamri_tpu.api import MamriEngine as JaxEngine
+from mamri_tpu.core import transforms as jT
+from mamri_tpu.core.robot import fk_all_links as j_fk
+from mamri_tpu.core.robot import marker_world_positions
+from mamri_tpu.ik.residuals import solve_full_chain_ik as j_solve
+from mamri_tpu.perception.volume import synthetic_volume
+from mamri_tpu_torch.api.engine import MamriEngine
+from mamri_tpu_torch.core.robot import load_robot_model
+from mamri_tpu_torch.ik.residuals import solve_full_chain_ik as t_solve
+from mamri_tpu_torch.perception.volume import Volume
+
+TRUE_ANGLES = np.array([0.3, -0.7, 0.5, 0.2, -0.4, 0.6], dtype=np.float32)
+MARKER_LINKS = ["Baseplate", "Joint2", "Joint4", "Joint6"]
+CERTS = ("seg_converged", "roots_complete", "blobs_complete", "seg_count_ok", "seg_cand_ok", "seg_runs_ok",
+         "seg_compact_ok")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _base_tf():
+    return np.array(
+        jT.translate(jnp.asarray([-60.0, -120.0, 0.0])) @ jT.rot_x(jnp.float32(-np.pi / 2)) @ jT.rot_z(jnp.float32(0.15))
+    )
+
+
+def _scene(model, spacing):
+    """tests/test_engine.py's `_make_scene`: the arm on the bed, fiducial
+    spheres at the FK marker positions, an ellipsoid body beside it."""
+    base = _base_tf()
+    pts = np.concatenate(
+        [np.asarray(marker_world_positions(model, jnp.asarray(TRUE_ANGLES), ln, jnp.asarray(base))) for ln in MARKER_LINKS]
+    )
+    body_center = np.array([-60.0, -40.0, 130.0])
+    lo = np.minimum(pts.min(0) - 40, body_center - 75)
+    hi = np.maximum(pts.max(0) + 40, body_center + 75)
+    lps_lo = np.array([-hi[0], -hi[1], lo[2]])
+    lps_hi = np.array([-lo[0], -lo[1], hi[2]])
+    sp = np.array([spacing] * 3, dtype=np.float32)
+    shape = tuple(int(np.ceil(e)) for e in (lps_hi - lps_lo) / sp)
+    vol = synthetic_volume(
+        shape=shape, spacing=sp, origin=lps_lo, fiducials_ras=pts, fiducial_radius_mm=4.0,
+        body_center_ras=body_center, body_radii_mm=[45.0, 55.0, 65.0],
+    )
+    return vol, base
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    return JaxEngine(ik_restarts=0)
+
+
+@pytest.fixture(scope="module")
+def scene(jax_engine):
+    return _scene(jax_engine.model, 3.0)
+
+
+def _tcp(model, angles, base):
+    return np.asarray(j_fk(model, jnp.asarray(angles), jnp.asarray(base)))[-1][:3, 3]
+
+
+def _compare(jeng, jres, teng, tres, base):
+    assert tres.success == jres.success
+    assert tres.markers_found == jres.markers_found
+    assert tres.num_blobs == jres.num_blobs
+    assert tres.baseplate_source == jres.baseplate_source
+    for c in CERTS:
+        assert bool(teng.last_segmentation[c]) == bool(jeng.last_segmentation[c]), c
+    assert int(teng.last_segmentation["num_components"]) == int(jeng.last_segmentation["num_components"])
+    np.testing.assert_array_equal(teng.last_segmentation["body_mask"], jeng.last_segmentation["body_mask"])
+    np.testing.assert_allclose(tres.baseplate_tf, jres.baseplate_tf, atol=1e-4)
+    if not jres.success:
+        return
+    np.testing.assert_allclose(tres.angles_rad[:3], jres.angles_rad[:3], atol=1e-3)
+    tcp_gap = np.linalg.norm(_tcp(jeng.model, tres.angles_rad, base) - _tcp(jeng.model, jres.angles_rad, base))
+    assert tcp_gap < 0.05, tcp_gap
+    assert np.abs(tres.steps.astype(np.int64) - jres.steps.astype(np.int64)).max() <= 1
+    assert abs(tres.rmse_mm - jres.rmse_mm) < 1e-3
+
+
+def test_estimate_pose_matches_jax(jax_engine, scene):
+    vol, base = scene
+    jres = jax_engine.estimate_pose(vol)
+    teng = MamriEngine(ik_restarts=0, device="cpu")
+    tres = teng.estimate_pose(Volume(vol.data, vol.spacing, vol.origin))
+    assert tres.success and tres.baseplate_source == "detected" and all(tres.markers_found.values())
+    assert np.rad2deg(np.abs(tres.angles_rad[:3] - TRUE_ANGLES[:3])).max() < 1.0
+    _compare(jax_engine, jres, teng, tres, base)
+    assert tres.steps.dtype == np.int32 and tres.angles_rad.dtype == np.float32
+
+
+def test_nonfinite_voxels_match_jax(jax_engine, scene):
+    vol, base = scene
+    data = np.array(vol.data, copy=True)
+    rng = np.random.default_rng(0)
+    for i, (a, b, c) in enumerate(rng.integers(0, min(data.shape), size=(200, 3))):
+        data[a, b, c] = np.nan if i % 2 else np.inf
+    jres = jax_engine.estimate_pose(type(vol)(data=data, spacing=vol.spacing, origin=vol.origin))
+    teng = MamriEngine(ik_restarts=0, device="cpu")
+    tres = teng.estimate_pose(Volume(data, vol.spacing, vol.origin))
+    assert tres.success and tres.rmse_mm < 1.5
+    _compare(jax_engine, jres, teng, tres, base)
+
+
+def test_roots_escalation_matches_jax(jax_engine, scene, caplog):
+    """300 lone speckles overflow the default 128 roots: both engines
+    escalate (the port to the compact run-stats path) and agree."""
+    vol, base = scene
+    data = np.array(vol.data, copy=True)
+    rng = np.random.default_rng(11)
+    bright = data > 60.0
+    for i, j, k in rng.integers(0, np.array(data.shape)[None, :], size=(300, 3)):
+        if not bright[max(i - 2, 0):i + 3, max(j - 2, 0):j + 3, max(k - 2, 0):k + 3].any():
+            data[i, j, k] = 100.0
+    jres = jax_engine.estimate_pose(type(vol)(data=data, spacing=vol.spacing, origin=vol.origin))
+    teng = MamriEngine(ik_restarts=0, device="cpu")
+    with caplog.at_level(logging.WARNING, logger="mamri_tpu_torch.api.engine"):
+        tres = teng.estimate_pose(Volume(data, vol.spacing, vol.origin))
+    assert any("escalation" in r.message for r in caplog.records)
+    assert int(teng.last_segmentation["num_components"]) > 128
+    assert tres.success and all(tres.markers_found.values())
+    _compare(jax_engine, jres, teng, tres, base)
+
+
+def test_full_chain_ik_with_jax_restart_draws():
+    """`num_random_restarts=2` at the engine's 24 iterations, the port fed
+    JAX's exact uniform draws through `restart_guesses`."""
+    from mamri_tpu.core.robot import load_robot_model as j_load
+
+    jm, tm = j_load(), load_robot_model()
+    base = _base_tf()
+    rng = np.random.default_rng(5)
+    pts = {
+        ln: np.asarray(marker_world_positions(jm, jnp.asarray(TRUE_ANGLES), ln, jnp.asarray(base)))
+        + rng.normal(size=(3, 3)).astype(np.float32) * 0.3
+        for ln in MARKER_LINKS
+    }
+    current = np.array([0.1, -0.2, 0.1, 0.0, 0.3, -0.1], np.float32)
+    want = j_solve(
+        jm, jnp.asarray(pts["Joint6"]), jnp.asarray(base), current_angles=jnp.asarray(current),
+        joint4_targets=jnp.asarray(pts["Joint4"]), joint4_found=True, num_iters=24,
+        num_random_restarts=2, joint2_targets=jnp.asarray(pts["Joint2"]), joint2_found=True,
+    )
+    lower, upper = jm.limits_rad[:, 0], jm.limits_rad[:, 1]
+    draws = np.asarray(jax.random.uniform(jax.random.PRNGKey(0), (2, 6), minval=lower * 0.8, maxval=upper * 0.8))
+    yes = torch.tensor(True)
+    got = t_solve(
+        tm, torch.as_tensor(pts["Joint6"]), torch.as_tensor(base), current_angles=torch.as_tensor(current),
+        joint4_targets=torch.as_tensor(pts["Joint4"]), joint4_found=yes, num_iters=24,
+        joint2_targets=torch.as_tensor(pts["Joint2"]), joint2_found=yes, restart_guesses=torch.tensor(draws),
+    )
+    np.testing.assert_allclose(got.angles[:3].numpy(), np.asarray(want.angles)[:3], atol=1e-3)
+    tcp_gap = np.linalg.norm(_tcp(jm, got.angles.numpy(), base) - _tcp(jm, np.asarray(want.angles), base))
+    assert tcp_gap < 0.05, tcp_gap
+    assert abs(float(got.rmse) - float(want.rmse)) < 1e-3
+    # the seeded generator gives the same guesses on every call
+    a = t_solve(tm, torch.as_tensor(pts["Joint6"]), torch.as_tensor(base), num_iters=4, num_random_restarts=2)
+    b = t_solve(tm, torch.as_tensor(pts["Joint6"]), torch.as_tensor(base), num_iters=4, num_random_restarts=2)
+    assert torch.equal(a.angles, b.angles)
+
+
+def test_saved_baseplate_and_failures(jax_engine, scene):
+    vol, base = scene
+    teng = MamriEngine(ik_restarts=0, device="cpu")
+    empty = synthetic_volume(shape=(48, 48, 48))
+    res = teng.estimate_pose(Volume(empty.data, empty.spacing, empty.origin))
+    assert not res.success and "baseplate" in res.message.lower()
+
+    teng.load_state_from_numpy(saved_baseplate=base, current_angles=TRUE_ANGLES)
+    res = teng.estimate_pose(Volume(empty.data, empty.spacing, empty.origin))
+    assert not res.success and res.baseplate_source == "saved_fallback" and "Joint6" in res.message
+    res = teng.estimate_pose(Volume(vol.data, vol.spacing, vol.origin), use_saved_baseplate=True)
+    assert res.success and res.baseplate_source == "saved"
+    np.testing.assert_allclose(res.baseplate_tf, base, atol=1e-6)
+
+
+def test_engine_options():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MamriEngine(match_mode="global", device="cpu")
+    with pytest.raises(ValueError):
+        MamriEngine(match_mode="first", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            MamriEngine(device="cuda")
+
+
+def test_port_imports_without_jax():
+    """With jax made unimportable, the port's package, engine and kernels'
+    module import and a CPU engine builds."""
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import mamri_tpu_torch\n"
+        "from mamri_tpu_torch.api.engine import MamriEngine\n"
+        "from mamri_tpu_torch.perception import gpu_ops, segmentation\n"
+        "e = MamriEngine(device='cpu')\n"
+        "assert e.model.num_joints == 6\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

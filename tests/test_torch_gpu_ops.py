@@ -1,0 +1,244 @@
+"""Each kernel's plain twin (what a CPU tensor runs) against its Pallas
+function in interpret mode, exactly, at small shapes and edge cases.
+
+The CUDA kernels themselves are held against these twins on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mamri_tpu.perception import pallas_ops as P
+from mamri_tpu.perception import segmentation as jseg
+from mamri_tpu_torch.perception import gpu_ops as G
+from mamri_tpu_torch.perception import segmentation as tseg
+
+BIG = 2**31 - 1
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _eq(got, want):
+    np.testing.assert_array_equal(got.numpy() if isinstance(got, torch.Tensor) else got, np.asarray(want))
+
+
+def _blob_mask(shape, seed, density=0.01):
+    rng = np.random.default_rng(seed)
+    x, y, z = np.mgrid[: shape[0], : shape[1], : shape[2]]
+    mask = np.zeros(shape, bool)
+    for _ in range(5):
+        c = rng.uniform(0, shape)
+        mask |= ((x - c[0]) ** 2 + (y - c[1]) ** 2 + ((z - c[2]) / 3) ** 2) < 12
+    mask |= (x > shape[0] - 5) & (z < shape[2] // 3)  # a slab touching the border
+    mask |= (y == 5) & (z % 7 < 4)  # a comb: several runs per z line
+    mask |= rng.random(shape) < density
+    return mask
+
+
+def _init_labels(mask):
+    nx, ny, _ = mask.shape
+    i, j, k = np.indices(mask.shape)
+    return np.where(mask, k * nx * ny + j * nx + i, BIG).astype(np.int32)
+
+
+TILE = (16, 16, 128)
+MASKS = {
+    "blobs": lambda: _blob_mask(TILE, 3),
+    "background": lambda: np.zeros(TILE, bool),
+    "full": lambda: np.ones(TILE, bool),
+}
+
+
+# ----------------------------------------------------------------- close_init
+@pytest.mark.parametrize("case", ["random", "nan", "background", "full"])
+def test_close_init_matches_pallas(case):
+    rng = np.random.default_rng(2)
+    data = (rng.random((16, 24, 20)) * 100).astype(np.float32)  # does not divide the tiles
+    if case == "nan":
+        data[rng.random(data.shape) < 0.05] = np.nan
+        data[3, 4, 5] = np.inf
+    elif case == "background":
+        data[:] = 10.0
+    elif case == "full":
+        data[:] = 100.0
+    want_mask, want_lab = P.fused_threshold_close_init(jnp.asarray(data), 65.0, 65535.0, interpret=True)
+    mask, lab = G.close_init(_t(data), 65.0, 65535.0)
+    assert mask.dtype == torch.int8 and lab.dtype == torch.int32
+    _eq(mask, want_mask)
+    _eq(lab, want_lab)
+
+
+# --------------------------------------------------------------- reset + CCL
+@pytest.fixture(scope="module", params=list(MASKS))
+def ccl_case(request):
+    mask = MASKS[request.param]()
+    reset = (~mask).astype(np.int8)
+    jd = P.compute_reset_distances(jnp.asarray(reset), interpret=True)
+    return mask, reset, jd
+
+
+def test_reset_distances_match_pallas(ccl_case):
+    _, reset, jd = ccl_case
+    td = G.compute_reset_distances(_t(reset))
+    for got, want in zip(td, jd):
+        assert got.dtype == torch.int16
+        _eq(got, want)
+
+
+def test_sweeps_and_checks_match_pallas(ccl_case):
+    mask, reset, jd = ccl_case
+    td = G.compute_reset_distances(_t(reset))
+    jlab = jnp.asarray(_init_labels(mask))
+    tlab = _t(_init_labels(mask))
+    for step in range(3):  # [yz, x] twice, then the fused final yz + check
+        if step < 2:
+            jlab, jchg = P.ccl_half_sweep_yz(jlab, jd, interpret=True)
+            tlab, tchg = G.ccl_half_sweep_yz(tlab, td)
+            _eq(tlab, jlab)
+            assert int(tchg[0]) == int(jchg)
+            _eq(G.ccl_check_consistency(tlab, td)[0], P.ccl_check_consistency(jlab, jd, interpret=True))
+            jlab, jchg = P.ccl_half_sweep_x(jlab, jd, interpret=True)
+            tlab, tchg = G.ccl_half_sweep_x(tlab, td)
+            _eq(tlab, jlab)
+            assert int(tchg[0]) == int(jchg)
+            _eq(G.ccl_check_consistency_x(tlab, td)[0], P.ccl_check_consistency_x(jlab, jd, interpret=True))
+        else:
+            jlab, jbad = P.ccl_half_sweep_yz(jlab, jd, interpret=True, with_check=True)
+            tlab, tbad = G.ccl_half_sweep_yz(tlab, td, with_check=True)
+            _eq(tlab, jlab)
+            assert int(tbad[0]) == int(jbad)
+
+
+def test_full_sweep_converges_to_the_jnp_fixed_point():
+    mask = _blob_mask(TILE, 4, density=0.03)
+    lab0 = _init_labels(mask)
+    ref, conv = jseg._ccl_sweeps_jnp(jnp.asarray(lab0), jnp.asarray(~mask), 8)
+    assert bool(conv)
+    td = G.compute_reset_distances(_t((~mask).astype(np.int8)))
+    lab, converged = tseg._ccl_sweeps_from_dists(_t(lab0), td, max_sweeps=8)
+    assert bool(converged)
+    _eq(lab, ref)
+
+
+# --------------------------------------------------------------------- z_runs
+def _converged(mask):
+    td = G.compute_reset_distances(_t((~mask).astype(np.int8)))
+    lab, _ = tseg._ccl_sweeps_from_dists(_t(_init_labels(mask)), td, max_sweeps=8)
+    return lab, td
+
+
+@pytest.mark.parametrize(
+    "case,k,cand_k,x_off",
+    [
+        ("blobs", 8, 8, 0),
+        ("blobs", 2, 2, 0),  # lines beyond run_k, blocks beyond cand_k
+        ("blobs", 4, 3, 5),  # roots against a shifted global x
+        ("background", 4, 8, 0),
+        ("full", 4, 8, 0),
+    ],
+)
+def test_z_runs_match_pallas(case, k, cand_k, x_off):
+    mask = MASKS[case]()
+    lab, td = _converged(mask)
+    nx, ny = (TILE[0] + x_off, TILE[1]) if x_off else TILE[:2]
+    want = P.extract_z_runs(
+        jnp.asarray(lab.numpy()), jnp.asarray(td[4].numpy()), jnp.asarray(td[5].numpy()),
+        nx, ny, k=k, cand_k=cand_k, interpret=True, x_off=x_off,
+    )
+    got = G.z_runs(lab, td[4], td[5], nx, ny, k=k, cand_k=cand_k, x_off=x_off)
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+def test_z_runs_unconverged_labels_match_pallas():
+    """Raw initial labels (no sweep): every foreground voxel is its own root."""
+    mask = _blob_mask(TILE, 6)
+    td = G.compute_reset_distances(_t((~mask).astype(np.int8)))
+    lab0 = _init_labels(mask)
+    want = P.extract_z_runs(
+        jnp.asarray(lab0), jnp.asarray(td[4].numpy()), jnp.asarray(td[5].numpy()),
+        TILE[0], TILE[1], k=4, cand_k=16, interpret=True,
+    )
+    for g, w in zip(G.z_runs(_t(lab0), td[4], td[5], TILE[0], TILE[1], k=4, cand_k=16), want):
+        _eq(g, w)
+
+
+# ------------------------------------------------------------------ run_stats
+def _assert_stats(got, want):
+    """Exact where the f32 sums are exact (below 2^24), else rtol 1e-5: the
+    port sums in int64, the Pallas kernel accumulates in f32."""
+    got, want = got.numpy(), np.asarray(want)
+    small = np.abs(want) < 2**24
+    np.testing.assert_array_equal(got[small], want[small])
+    np.testing.assert_allclose(got[~small], want[~small], rtol=1e-5)
+
+
+def test_run_stats_dense_and_compact_match_pallas():
+    mask = _blob_mask(TILE, 7, density=0.02)
+    lab, td = _converged(mask)
+    run_lab, run_z0, run_len, cands = G.z_runs(lab, td[4], td[5], TILE[0], TILE[1], k=8, cand_k=32)[:4]
+    roots = torch.topk(cands, 48, largest=False).values.contiguous()
+    assert int((roots != BIG).sum()) > 5
+    jtabs = [jnp.asarray(a.numpy()) for a in (run_lab, run_len, run_z0)]
+    want = P.run_stats_matmul(*jtabs, jnp.asarray(roots.numpy()), interpret=True)
+    _assert_stats(G.run_stats(run_lab, run_len, run_z0, roots), want)
+
+    jcols = jseg.compact_runs(jtabs[0], jtabs[1], jtabs[2], 512)
+    tcols = tseg.compact_runs(run_lab, run_len, run_z0, 512)
+    for g, w in zip(tcols, jcols):
+        _eq(g, w)
+    want = P.run_stats_matmul_compact(*jcols[:5], jnp.asarray(roots.numpy()), interpret=True)
+    _assert_stats(G.run_stats_compact(*tcols[:5], roots), want)
+
+
+def test_compact_runs_overflowing_cap_matches_jax():
+    mask = _blob_mask(TILE, 8, density=0.05)
+    lab, td = _converged(mask)
+    run_lab, run_z0, run_len = G.z_runs(lab, td[4], td[5], TILE[0], TILE[1], k=8, cand_k=8)[:3]
+    j = jseg.compact_runs(*(jnp.asarray(a.numpy()) for a in (run_lab, run_len, run_z0)), 64)
+    t = tseg.compact_runs(run_lab, run_len, run_z0, 64)
+    assert int(t[5]) > 64
+    for g, w in zip(t, j):
+        _eq(g, w)
+
+
+def test_run_stats_large_sums_and_repeated_roots():
+    """Synthetic tables with sums far above 2^24 and a repeated root."""
+    rng = np.random.default_rng(9)
+    shape = (8, 4, 128)
+    labels = rng.choice(np.array([5, 9, 40, 77, BIG], np.int32), size=shape)
+    lens = np.where(labels == BIG, 0, rng.integers(1, 3000, shape)).astype(np.int32)
+    z0 = np.where(labels == BIG, 0, rng.integers(0, 20000, shape)).astype(np.int32)
+    roots = np.array([5, 9, 9, 40, 77, 1000, BIG, BIG], np.int32)
+    want = P.run_stats_matmul(*(jnp.asarray(a) for a in (labels, lens, z0, roots)), interpret=True)
+    got = G.run_stats(_t(labels), _t(lens), _t(z0), _t(roots))
+    assert (np.abs(np.asarray(want)) >= 2**24).any()
+    _assert_stats(got, want)
+    np.testing.assert_array_equal(got[1].numpy(), got[2].numpy())
+
+
+# ------------------------------------------------------------ wrapper contract
+def test_wrappers_check_their_inputs():
+    with pytest.raises(TypeError):
+        G.close_init(torch.zeros((4, 4, 4), dtype=torch.float64), 1.0, 2.0)
+    with pytest.raises(ValueError, match="multiples"):
+        G.z_runs(torch.zeros((8, 8, 100), dtype=torch.int32), torch.zeros((8, 8, 100), dtype=torch.int16),
+                 torch.zeros((8, 8, 100), dtype=torch.int16), 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        G.reset_distances(torch.zeros((8, 8, 8), dtype=torch.int8).transpose(0, 2), 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        G.reset_distances(torch.zeros((8, 8, 8), dtype=torch.int8, device="meta"), 0)
+
+
+def test_cpu_tensors_never_launch():
+    G.reset_launch_counts()
+    mask = _blob_mask(TILE, 10)
+    data = np.where(mask, 100.0, 10.0).astype(np.float32)
+    tseg.segment_volume(_t(data), np.ones(3, np.float32), np.zeros(3, np.float32))
+    assert all(v == 0 for v in G.LAUNCHES.values()), G.LAUNCHES
