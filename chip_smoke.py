@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's scan -> pose path once on one NVIDIA GPU.
+"""Drive the PyTorch port's scan -> pose paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,9 @@
 2. Holds every kernel against its plain-torch twin on the same CUDA inputs
    (exact equality: every output is an integer or an exact integer sum) at
    256^3, at 80^3 (a shape that does not divide the (8, 8, 128) tiles) and
-   at 512x512x192, and times both (CUDA events, median of 5).
+   at 512x512x192, and times both (CUDA events, median of 5) beside the
+   kernel's bound (the bytes it must move at 3.35 TB/s, or its operations
+   at 67 T/s, whichever is larger).
 3. Runs `MamriEngine(device="cuda").estimate_pose` on bench.py's canonical
    scene rendered into 256^3 (random-free synthetic scan, known pose): one
    warm-up, then 5 timed calls. Checks the pose against the truth.
@@ -16,11 +18,17 @@
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
 5. One 512x512x192 frame through `estimate_pose`.
+6. The non-fused branch: `estimate_pose` with `closing_radius=1` at 256^3
+   (one warm-up, 5 timed calls) and at 512x512x192 (cold, then warm). It
+   must launch `component_stats_xyz` and never `close_init`.
+7. The kernel-parity harness, `run_parity_checks` at sizes 128 and 80 on the
+   card: every check must hold.
 
-Launch counts are reset just before phase 3 and read after phase 5; every
-kernel of the path must have launched. The last two lines are the kernels'
-JSON and the result JSON; any failure raises and exits non-zero. Without
-CUDA it exits 1 and prints no result.
+Each path (phases 3-5, 6, 7) runs with the launch counts set to 0 just
+before it and read just after it; every kernel of a path must have launched
+in it. The last two lines are the kernels' JSON and the result JSON; any
+failure raises and exits non-zero. Without CUDA it exits 1 and prints no
+result.
 """
 
 import json
@@ -45,7 +53,21 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
     "z_runs": ("mamri_tpu_torch/csrc/runs.cu", f"{PALLAS}:713"),
     "run_stats": ("mamri_tpu_torch/csrc/runs.cu", f"{PALLAS}:816"),
     "run_stats_compact": ("mamri_tpu_torch/csrc/runs.cu", f"{PALLAS}:893"),
+    "scan_lines": ("mamri_tpu_torch/csrc/scan_lines.cu", f"{PALLAS}:93"),
+    "root_candidates": ("mamri_tpu_torch/csrc/roots.cu", f"{PALLAS}:503"),
+    "component_stats_xyz": ("mamri_tpu_torch/csrc/stats.cu", f"{PALLAS}:1046"),
+    "component_stats_raster": ("mamri_tpu_torch/csrc/stats.cu", f"{PALLAS}:964"),
 }
+# H100 SXM peaks: HBM3 bytes/s, and the non-tensor f32 rate, against which the
+# kernels' 32-bit integer operations (compares, mins, adds) are counted
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+
+def bound(nbytes, nops):
+    """(least ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def card_line() -> str:
@@ -161,7 +183,12 @@ def speckle_scene(model):
 # ------------------------------------------------------- phase 2: kernels
 def compare_kernels(data_np, label, card, failures, timings):
     """Every kernel against its twin on the same CUDA inputs, stage by
-    stage through the segmentation of one volume."""
+    stage through the segmentation of one volume, each timed beside its
+    bound. Bytes: each input read once, each output written once. Operations
+    (32-bit integer): per cell, close_init 34 (threshold, two ball(2) passes
+    of 15, label), reset_distances 4, run_min 2, check 3, z_runs 2,
+    scan_lines 4, root_candidates 2 (+ 8 per foreground voxel), stats 2 (+
+    log2 R + 10 per matched voxel or run)."""
     import torch
     from mamri_tpu_torch.perception import gpu_ops as g
     from mamri_tpu_torch.perception.segmentation import _pad_for_kernels, compact_runs
@@ -169,9 +196,10 @@ def compare_kernels(data_np, label, card, failures, timings):
     dev = torch.device("cuda")
     data = torch.as_tensor(data_np).to(dev)
     nx, ny, nz = data.shape
+    n = data.numel()
     errs = {}
 
-    def record(name, got, want, kernel_ms, plain_ms):
+    def record(name, got, want, fn=None, plain=None, make_args=None, nbytes=0, nops=0):
         got = got if isinstance(got, (tuple, list)) else (got,)
         want = want if isinstance(want, (tuple, list)) else (want,)
         err = 0.0
@@ -185,24 +213,29 @@ def compare_kernels(data_np, label, card, failures, timings):
         if err != 0.0:
             failures.append(f"{label} {name}: max |kernel - twin| = {err}")
         errs[name] = max(errs.get(name, 0.0), err)
-        timings.setdefault(label, {})[name] = (kernel_ms, plain_ms)
-        print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} ({card})")
+        if fn is None:
+            print(f"kernel {label} {name}: max_abs_err={err}")
+            return
+        kernel_ms, plain_ms = med_ms(fn, make_args), med_ms(plain, make_args)
+        bound_ms, bound_by = bound(nbytes, nops)
+        timings.setdefault(label, {})[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B) ({card})")
+
+    def both(name, fn, plain, make_args, nbytes, nops):
+        got, want = fn(*make_args()), plain(*make_args())
+        record(name, got, want, fn, plain, make_args, nbytes, nops)
+        return got
 
     lo, hi = 65.0, 65535.0
-    got, want = g.close_init(data, lo, hi), g.close_init_plain(data, lo, hi)
-    record("close_init", got, want,
-           med_ms(g.close_init, lambda: (data, lo, hi)),
-           med_ms(g.close_init_plain, lambda: (data, lo, hi)))
-    mask, lab0 = got
+    mask, lab0 = both("close_init", g.close_init, g.close_init_plain, lambda: (data, lo, hi), 9 * n, 34 * n)
     lab0, reset = _pad_for_kernels(lab0, (mask == 0).to(torch.int8))
+    npad = lab0.numel()
 
     dists = []
     for axis in (0, 1, 2):
-        got, want = g.reset_distances(reset, axis), g.reset_distances_plain(reset, axis)
-        record("reset_distances", got, want,
-               med_ms(g.reset_distances, lambda: (reset, axis)),
-               med_ms(g.reset_distances_plain, lambda: (reset, axis)))
-        dists.extend(got)
+        dists.extend(both("reset_distances", g.reset_distances, g.reset_distances_plain,
+                          lambda: (reset, axis), 5 * npad, 4 * npad))
 
     # the engine's schedule [yz, x, yz], each half-sweep held against the twin
     lab = lab0.clone()
@@ -212,33 +245,58 @@ def compare_kernels(data_np, label, card, failures, timings):
         b, fb = lab.clone(), g.new_flag(dev)
         g.run_min(a, df, db, axis, fa)
         g.run_min_plain(b, df, db, axis, fb)
-        record("run_min", (a, fa), (b, fb),
-               med_ms(g.run_min, lambda: (lab.clone(), df, db, axis, g.new_flag(dev))),
-               med_ms(g.run_min_plain, lambda: (lab.clone(), df, db, axis, g.new_flag(dev))))
+        record("run_min", (a, fa), (b, fb), g.run_min, g.run_min_plain,
+               lambda: (lab.clone(), df, db, axis, g.new_flag(dev)), 12 * npad, 2 * npad)
         lab = a
     for labels in (lab0, lab):
         for axis in (0, 1, 2):
             df = dists[2 * axis]
-            fa, fb = g.new_flag(dev), g.new_flag(dev)
-            g.check(labels, df, axis, fa)
-            g.check_plain(labels, df, axis, fb)
-            record("check", fa, fb,
-                   med_ms(g.check, lambda: (labels, df, axis, g.new_flag(dev))),
-                   med_ms(g.check_plain, lambda: (labels, df, axis, g.new_flag(dev))))
+            both("check", g.check, g.check_plain, lambda: (labels, df, axis, g.new_flag(dev)), 6 * npad, 3 * npad)
 
     k, cand_k = 8, 8
-    args = (lab, dists[4], dists[5], nx, ny, k, cand_k)
-    got, want = g.z_runs(*args), g.z_runs_plain(*args)
-    record("z_runs", got, want, med_ms(g.z_runs, lambda: args), med_ms(g.z_runs_plain, lambda: args))
-    run_lab, run_z0, run_len, cands = got[:4]
+    nyq = -(-lab.shape[1] // 128) * 128
+    m = lab.shape[0] * k * nyq
+    nblocks = (lab.shape[0] // 8) * (nyq // 128)
+    run_lab, run_z0, run_len, cands = both(
+        "z_runs", g.z_runs, g.z_runs_plain, lambda: (lab, dists[4], dists[5], nx, ny, k, cand_k),
+        8 * npad + 12 * m + 4 * nblocks * (cand_k + 1), 2 * npad)[:4]
     roots = torch.topk(cands, min(256, cands.numel()), largest=False).values.contiguous()
-    args = (run_lab, run_len, run_z0, roots)
-    record("run_stats", g.run_stats(*args), g.run_stats_plain(*args),
-           med_ms(g.run_stats, lambda: args), med_ms(g.run_stats_plain, lambda: args))
+    r = roots.numel()
+    per_hit = int(np.ceil(np.log2(r))) + 10
+    runs = int((run_len > 0).sum())
+    both("run_stats", g.run_stats, g.run_stats_plain, lambda: (run_lab, run_len, run_z0, roots),
+         12 * m + 20 * r, 2 * m + runs * per_hit)
     cols = compact_runs(run_lab, run_len, run_z0, 32768)[:5]
-    args = (*cols, roots)
-    record("run_stats_compact", g.run_stats_compact(*args), g.run_stats_compact_plain(*args),
-           med_ms(g.run_stats_compact, lambda: args), med_ms(g.run_stats_compact_plain, lambda: args))
+    cap = cols[0].numel()
+    both("run_stats_compact", g.run_stats_compact, g.run_stats_compact_plain, lambda: (*cols, roots),
+         20 * cap + 20 * r, 2 * cap + runs * per_hit)
+
+    # kernel 12 along z, y, x, on the lines ccl_sweep_pallas hands it, then
+    # the whole sweep against the composition of its twins
+    lab_u = lab0[:nx, :ny, :nz].contiguous()
+    reset_u = (lab_u == g.BIG).to(torch.int32)
+    plain_sweep = lab_u
+    for axis in (2, 1, 0):
+        lines = plain_sweep.movedim(axis, -1).contiguous()
+        r_lines = reset_u.movedim(axis, -1).contiguous()
+        args = (lines.reshape(-1, lines.shape[-1]), r_lines.reshape(-1, lines.shape[-1]))
+        both("scan_lines", g.scan_lines, g.scan_lines_plain, lambda: args, 12 * n, 4 * n)
+        plain_sweep = g.scan_lines_plain(*args).reshape(lines.shape).movedim(-1, axis).contiguous()
+    record("scan_lines", g.ccl_sweep_pallas(lab_u, reset_u), plain_sweep)
+
+    fg = int((lab != g.BIG).sum())
+    for kk in (8, 16):
+        both("root_candidates", g.root_candidates, g.root_candidates_plain, lambda: (lab, nx, ny, kk),
+             4 * npad + 4 * (lab.shape[0] // 8) * (kk + 1), 2 * npad + 8 * fg)
+
+    lab_c = lab[:nx, :ny, :nz].contiguous()
+    flat = lab_c.reshape(-1)
+    hits = int(torch.isin(flat, roots[roots != g.BIG]).sum())
+    both("component_stats_xyz", g.component_stats_xyz, g.component_stats_xyz_plain,
+         lambda: (flat, roots, nx, ny, nz), 4 * n + 20 * r, 2 * n + hits * per_hit)
+    raster = lab_c.permute(2, 1, 0).contiguous().reshape(-1)
+    both("component_stats_raster", g.component_stats_raster, g.component_stats_raster_plain,
+         lambda: (raster, roots, nx, ny), 4 * n + 20 * r, 2 * n + hits * per_hit)
     return errs
 
 
@@ -268,6 +326,48 @@ def check_pose(engine, res, truth, label, rmse_max=0.5):
         raise AssertionError(f"{label}: RMSE {res.rmse_mm} mm >= {rmse_max}")
     if not j1_err_deg < 1.0:
         raise AssertionError(f"{label}: |J1 - truth| = {j1_err_deg} deg >= 1")
+
+
+DEFAULT_PATH_KERNELS = ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats",
+                        "run_stats_compact")
+NONFUSED_PATH_KERNELS = ("reset_distances", "run_min", "check", "component_stats_xyz")
+
+
+def read_path_counts(gpu_ops, required, label):
+    """The launch counts of the path just driven; each required kernel must
+    have launched in it."""
+    counts = dict(gpu_ops.LAUNCHES)
+    missing = [n for n in required if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing} ({counts})")
+    print(f"{label} launches: {counts}")
+    return counts
+
+
+def time_estimates(engine, vol, label, card):
+    """p50 of REPS warm `estimate_pose` calls (host clock; the call ends in
+    its result fetch), each checked against the truth."""
+    lat = []
+    for _ in range(REPS):
+        engine.current_angles = np.zeros(6, np.float32)
+        t0 = time.perf_counter()
+        res = engine.estimate_pose(vol)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check_pose(engine, res, TRUE_ANGLES, label)
+    p50 = float(np.median(lat))
+    print(f"estimate_pose {label} p50_ms={p50:.3f} all_ms={[round(x, 3) for x in lat]} ({card})")
+    return p50
+
+
+def cold_warm(engine, vol, label, card):
+    ms = []
+    for _ in range(2):  # a cold call, then a warm one
+        engine.current_angles = np.zeros(6, np.float32)
+        t0 = time.perf_counter()
+        res = engine.estimate_pose(vol)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check_pose(engine, res, TRUE_ANGLES, label)
+    print(f"estimate_pose {label} cold_ms={ms[0]:.3f} warm_ms={ms[1]:.3f} ({card})")
 
 
 def main() -> int:
@@ -317,24 +417,12 @@ def main() -> int:
     if failures:
         raise AssertionError("kernels disagree with their twins:\n" + "\n".join(failures))
 
-    # ---- phases 3-5: the port's path; counts from here on are the path's
+    # ---- phases 3-5: the default path; counts from here on are the path's
     gpu_ops.reset_launch_counts()
     engine = MamriEngine(device="cuda")
     engine.estimate_pose(vol256)  # warm-up
-    lat = []
-    for _ in range(REPS):
-        engine.current_angles = np.zeros(6, np.float32)
-        t0 = time.perf_counter()
-        res = engine.estimate_pose(vol256)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    check_pose(engine, res, TRUE_ANGLES, "main 256^3")
-    p50 = float(np.median(lat))
-    print(f"estimate_pose 256^3 p50_ms={p50:.3f} all_ms={[round(x, 3) for x in lat]} ({card})")
-    default_path = ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats")
-    missing = [n for n in default_path if gpu_ops.LAUNCHES[n] == 0]
-    if missing:
-        raise AssertionError(f"default path did not launch: {missing} ({gpu_ops.LAUNCHES})")
-    print(f"default path launches: {dict(gpu_ops.LAUNCHES)}")
+    per_call = {"fused": dict(gpu_ops.LAUNCHES)}
+    p50 = time_estimates(engine, vol256, "main 256^3", card)
 
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()
@@ -363,34 +451,54 @@ def main() -> int:
     finally:
         log.removeHandler(esc)
 
-    eng = MamriEngine(device="cuda")
-    ms512 = []
-    for _ in range(2):  # a cold call, then a warm one
-        eng.current_angles = np.zeros(6, np.float32)
+    cold_warm(MamriEngine(device="cuda"), vol512, "512x512x192", card)
+    paths = {"estimate_default": read_path_counts(gpu_ops, DEFAULT_PATH_KERNELS, "default path")}
+
+    # ---- phase 6: the non-fused branch (closing_radius != 2)
+    gpu_ops.reset_launch_counts()
+    nonfused = SegmentationParams(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
+    engine = MamriEngine(device="cuda", seg_params=nonfused)
+    engine.estimate_pose(vol256)  # warm-up
+    per_call["nonfused"] = dict(gpu_ops.LAUNCHES)
+    p50_nf = time_estimates(engine, vol256, "non-fused 256^3", card)
+    cold_warm(MamriEngine(device="cuda", seg_params=nonfused), vol512, "non-fused 512x512x192", card)
+    paths["estimate_nonfused"] = read_path_counts(gpu_ops, NONFUSED_PATH_KERNELS, "non-fused path")
+    if paths["estimate_nonfused"]["close_init"]:
+        raise AssertionError("non-fused path launched close_init: the fused branch ran")
+    print(f"launches per estimate_pose at 256^3: {per_call}")
+    print(f"estimate_pose 256^3 p50_ms fused={p50:.3f} non-fused={p50_nf:.3f} ({card})")
+
+    # ---- phase 7: the kernel-parity harness
+    from mamri_tpu_torch.perception.parity import run_parity_checks
+
+    gpu_ops.reset_launch_counts()
+    for size in (128, 80):
         t0 = time.perf_counter()
-        res = eng.estimate_pose(vol512)
-        ms512.append((time.perf_counter() - t0) * 1e3)
-        check_pose(eng, res, TRUE_ANGLES, "512x512x192")
-    print(f"estimate_pose 512x512x192 cold_ms={ms512[0]:.3f} warm_ms={ms512[1]:.3f} ({card})")
-    counts = dict(gpu_ops.LAUNCHES)
-    missing = [n for n, c in counts.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels of the path never launched: {missing} ({counts})")
+        rep = run_parity_checks(size, device="cuda")
+        print(f"parity size {size}: all_exact={rep['all_exact']} num_checks={rep['num_checks']} "
+              f"seconds={time.perf_counter() - t0:.3f}")
+        if not rep["all_exact"]:
+            raise AssertionError(f"parity size {size} failed: {json.dumps(rep)}")
+    paths["parity"] = read_path_counts(gpu_ops, tuple(KERNELS), "parity harness")
 
     main_t = timings["256^3"]
-    kernels = [
-        {
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        ms, plain_ms, bound_ms, bound_by = main_t[name]
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": counts[name],
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {path: p[name] for path, p in paths.items()},
             "max_abs_err": errs[name],
-            "ms": main_t[name][0],
-            "plain_ms": main_t[name][1],
-        }
-        for name, (src, replaces) in KERNELS.items()
-    ]
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes any of these functions
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

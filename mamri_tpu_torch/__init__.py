@@ -1,9 +1,9 @@
 """mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu's scan -> pose path.
 
 `mamri_tpu` (JAX/Pallas) stays the reference; this package is held against
-it on identical inputs. It imports torch and numpy, never jax: the only
-imports it takes from `mamri_tpu` are the jax-free `mamri_tpu.api.types` and
-the robot definition read by file path (`mamri_tpu/resources/mamri_arm.json`).
+it on identical inputs. It imports torch and numpy, never jax, and nothing
+of `mamri_tpu`: it keeps its own copies of what it needs from there
+(`api/types.py`, `resources/mamri_arm.json`, `perception/volume.py`).
 
 Layering mirrors `mamri_tpu`:
   core/          4x4 algebra, robot model + FK, unit conversion

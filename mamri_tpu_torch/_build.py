@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels in `csrc/` at first use.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
-plain C interface, bound here with ctypes (no PyTorch headers, so a build
-takes seconds). The library lands in `build/mamri_tpu_torch/<hash>/` beside
+`nvcc` compiles every `csrc/*.cu` for sm_90a (one process per source, all
+started together) and links them into one shared library with a plain C
+interface, bound here with ctypes (no PyTorch headers, so a build takes
+seconds). The library lands in `build/mamri_tpu_torch/<hash>/` beside
 the package, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as it is. Nothing is built or
 loaded on import: the first wrapper that launches a kernel calls `library()`.
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "mamri_check": [_P, _P, _I, _I, _I, _I, _P],
     "mamri_z_runs": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9,
     "mamri_run_stats": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P, _I, _P, _P],
+    "mamri_scan_lines": [_P, _P, _P, ctypes.c_longlong, _I],
+    "mamri_root_candidates": [_P, _P, _I, _I, _I, _I, _I, _I],
+    "mamri_component_stats": [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 # what the last build in this process took and printed (read by chip_smoke.py)
@@ -66,17 +70,38 @@ def _library_path() -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libmamri_kernels.so")
 
 
+def _run_all(cmds):
+    """Run the commands side by side; (return codes, combined output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], "".join(outs)
+
+
 def _build(so_path: str) -> None:
-    os.makedirs(os.path.dirname(so_path), exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(s for s in _sources() if s.endswith(".cu"))]
+    """One nvcc per source, all started together, then one link."""
+    out_dir = os.path.dirname(so_path)
+    os.makedirs(out_dir, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, cmds = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        cmds.append([nvcc, *compile_flags, "-c", "-o", obj, src])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    rcs, log = _run_all(cmds)
+    if not any(rcs):
+        link_rcs, link_log = _run_all([[nvcc, *NVCC_FLAGS, "-o", f"{so_path}.{tag}", *objs]])
+        rcs, log = rcs + link_rcs, log + link_log
     last_build["seconds"] = time.perf_counter() - t0
-    last_build["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build['log']}")
-    os.replace(tmp, so_path)  # atomic: a concurrent loader sees all or nothing
+    last_build["log"] = log
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed ({rcs}):\n{log}")
+    os.replace(f"{so_path}.{tag}", so_path)  # atomic: a concurrent loader sees all or nothing
 
 
 @functools.lru_cache(maxsize=None)

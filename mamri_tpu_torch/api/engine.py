@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mamri_tpu.api.types import PoseEstimate
+from mamri_tpu_torch.api.types import PoseEstimate
 from mamri_tpu_torch.core.robot import RobotModel, load_robot_model
 from mamri_tpu_torch.core.units import angles_to_steps
 from mamri_tpu_torch.ik.residuals import solve_full_chain_ik
@@ -172,8 +172,10 @@ class MamriEngine:
         """One escalation step for an uncertified segmentation, carried over
         from mamri_tpu/api/engine.py:288-366 unchanged: each failing
         certificate grows only its own budget. None when nothing further can
-        be done. (`jnp_path` names the reference's non-kernel branch; the
-        port always runs the kernel branch.)"""
+        be done. `jnp_path` is True where the reference would take its jnp
+        path, i.e. where `use_pallas` is False: there a failed blocked top-k
+        also turns on `exhaustive_roots`; otherwise, at any closing radius,
+        it raises `max_roots` only, as on the reference's accelerator."""
         new = params
         if not converged:
             if params.passes is not None:
@@ -255,6 +257,7 @@ class MamriEngine:
                 cand_ok=certs["seg_cand_ok"],
                 runs_ok=certs["seg_runs_ok"],
                 compact_ok=certs["seg_compact_ok"],
+                jnp_path=params.use_pallas is False,
             )
             if stronger is None:
                 logger.warning(

@@ -1,8 +1,8 @@
 """Robot model as tensors + forward kinematics.
 
-Port of `mamri_tpu/core/robot.py`. The arm definition is read from the same
-JSON file (`mamri_tpu/resources/mamri_arm.json`, by path: importing
-`mamri_tpu.core` would load jax). FK walks the static parent chain:
+Port of `mamri_tpu/core/robot.py`. The arm definition is the port's own
+byte-for-byte copy of the JAX package's JSON file
+(`mamri_tpu_torch/resources/mamri_arm.json`). FK walks the static parent chain:
 
     world(link) = world(parent) @ fixed_offset(link) @ articulation(link, angle)
 
@@ -24,11 +24,7 @@ import torch
 from mamri_tpu_torch.core import transforms
 from mamri_tpu_torch.core.transforms import AXIS_CODE_BY_NAME, AXIS_NONE
 
-_RESOURCE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "mamri_tpu",
-    "resources",
-)
+_RESOURCE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "resources")
 
 
 def default_config_path() -> str:

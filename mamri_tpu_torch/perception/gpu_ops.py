@@ -1,8 +1,8 @@
 """The segmentation kernels: CUDA wrappers, their plain-torch twins, counters.
 
-Counterpart of `mamri_tpu/perception/pallas_ops.py`. Every Pallas kernel on
-the estimate path is a hand-written CUDA kernel in `mamri_tpu_torch/csrc/`
-(built by `_build.library()` at first use):
+Counterpart of `mamri_tpu/perception/pallas_ops.py`. Every Pallas kernel is
+a hand-written CUDA kernel in `mamri_tpu_torch/csrc/` (built by
+`_build.library()` at first use):
 
   close_init       csrc/close_init.cu  <- fused_threshold_close_init
   reset_distances  csrc/ccl.cu         <- compute_reset_distances
@@ -11,6 +11,11 @@ the estimate path is a hand-written CUDA kernel in `mamri_tpu_torch/csrc/`
   z_runs           csrc/runs.cu        <- extract_z_runs
   run_stats        csrc/runs.cu        <- run_stats_matmul
   run_stats_compact csrc/runs.cu       <- run_stats_matmul_compact
+  scan_lines       csrc/scan_lines.cu  <- segmented_min_scan_lines (and
+                                          ccl_sweep_pallas, three of them)
+  root_candidates  csrc/roots.cu       <- extract_root_candidates
+  component_stats_xyz    csrc/stats.cu <- component_stats_matmul_xyz
+  component_stats_raster csrc/stats.cu <- component_stats_matmul
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its kernel on the current CUDA stream
@@ -36,7 +41,13 @@ LAUNCHES = {
     "z_runs": 0,
     "run_stats": 0,
     "run_stats_compact": 0,
+    "scan_lines": 0,
+    "root_candidates": 0,
+    "component_stats_xyz": 0,
+    "component_stats_raster": 0,
 }
+ROOTS_MAX_K = 64  # csrc/roots.cu keeps each thread's k smallest roots in a fixed list
+STATS_MAX_ROOTS = 7168  # csrc/stats.cu: R x 4 int64 in the 227 KB of a block's shared memory
 
 
 def reset_launch_counts() -> None:
@@ -373,6 +384,147 @@ def _run_stats_sums(lab, ln, z0, gi, gj, roots):
     return acc[torch.searchsorted(roots, roots)].to(torch.float32)
 
 
+# ----------------------------------------------------------------- scan_lines
+def scan_lines(lab, reset):
+    """(L, N) int32 labels, (L, N) int32 0/1 reset -> (L, N) int32: the
+    bidirectional segmented min along the last axis. A reset cell starts a
+    segment and keeps its own value; every other cell gets the minimum over
+    its segment, the reset cells bounding it included."""
+    _check(lab, "scan_lines lab", torch.int32)
+    if lab.dim() != 2 or min(lab.shape) < 1:
+        raise ValueError(f"scan_lines: expected a non-empty (L, N) array, got {tuple(lab.shape)}")
+    _check(reset, "scan_lines reset", torch.int32, lab.shape)
+    if not _on_cuda(lab, reset):
+        return scan_lines_plain(lab, reset)
+    out = torch.empty_like(lab)
+    _launch("scan_lines", "mamri_scan_lines", lab.data_ptr(), reset.data_ptr(), out.data_ptr(), *lab.shape)
+    return out
+
+
+def scan_lines_plain(lab, reset):
+    """Plain twin of `scan_lines`: forward segments numbered by a cumsum of
+    the resets, their minimum by scatter_reduce, then the next reset cell's
+    value (which closes the backward segment) folded in."""
+    nl, n = lab.shape
+    dev = lab.device
+    r = reset != 0
+    seg = torch.cumsum(r, 1) + torch.arange(nl, device=dev)[:, None] * (n + 1)
+    mins = torch.full((nl * (n + 1),), BIG, dtype=torch.int32, device=dev)
+    mins = mins.scatter_reduce(0, seg.reshape(-1), lab.reshape(-1), "amin")
+    idx = torch.arange(n, device=dev).expand(nl, n)
+    nxt = torch.where(r, idx, n).flip(1).cummin(1).values.flip(1)  # first reset at or after
+    at_next = torch.where(nxt < n, lab.gather(1, nxt.clamp(max=n - 1)), BIG)
+    return torch.where(r, lab, torch.minimum(mins[seg], at_next))
+
+
+# ------------------------------------------------------------ root_candidates
+def root_candidates(labels, nx: int, ny: int, k: int = 8):
+    """(nblocks, k + 1) int32, one row per 8-x slab of the padded labels:
+    the slab's k smallest roots ascending (BIG where it has fewer), then its
+    exact root count (which may exceed k). A root is a voxel whose label is
+    its own (z, y, x) raster index in the UNPADDED (nx, ny) grid."""
+    _check(labels, "root_candidates labels", torch.int32)
+    if labels.dim() != 3 or min(labels.shape) < 1 or labels.shape[0] % 8:
+        raise ValueError(f"root_candidates: expected (8*s, ny, nz) labels, got {tuple(labels.shape)}")
+    if not 1 <= k <= ROOTS_MAX_K:
+        raise ValueError(f"root_candidates: k must lie in [1, {ROOTS_MAX_K}], got {k}")
+    if not _on_cuda(labels):
+        return root_candidates_plain(labels, nx, ny, k)
+    nxp, nyp, nzp = labels.shape
+    out = torch.empty((nxp // 8, k + 1), dtype=torch.int32, device=labels.device)
+    _launch("root_candidates", "mamri_root_candidates", labels.data_ptr(), out.data_ptr(),
+            nxp // 8, nyp, nzp, nx, ny, k)
+    return out
+
+
+def root_candidates_plain(labels, nx: int, ny: int, k: int = 8):
+    """Plain twin of `root_candidates`: a root mask, then top-k per slab."""
+    nxp, nyp, nzp = labels.shape
+    dev = labels.device
+    i = torch.arange(nxp, dtype=torch.int64, device=dev)[:, None, None]
+    j = torch.arange(nyp, dtype=torch.int64, device=dev)[None, :, None]
+    kk = torch.arange(nzp, dtype=torch.int64, device=dev)[None, None, :]
+    is_root = (labels != BIG) & (labels.long() == kk * (nx * ny) + j * nx + i)
+    v = torch.where(is_root, labels, BIG).reshape(nxp // 8, -1)
+    take = min(k, v.shape[1])
+    cands = torch.topk(v, take, dim=1, largest=False, sorted=True).values
+    if take < k:
+        cands = torch.nn.functional.pad(cands, (0, k - take), value=BIG)
+    counts = is_root.reshape(nxp // 8, -1).sum(1, dtype=torch.int32)
+    return torch.cat([cands, counts[:, None]], dim=1)
+
+
+# ------------------------------------------------------------ component_stats
+def _check_stats(name, flat_labels, roots):
+    _check(flat_labels, f"{name} flat_labels", torch.int32)
+    _check(roots, f"{name} roots", torch.int32)
+    if flat_labels.dim() != 1 or roots.dim() != 1 or flat_labels.numel() < 1:
+        raise ValueError(f"{name}: expected 1-D labels and roots, got {tuple(flat_labels.shape)}, "
+                         f"{tuple(roots.shape)}")
+    if not 1 <= roots.numel() <= STATS_MAX_ROOTS:
+        raise ValueError(f"{name}: needs 1 to {STATS_MAX_ROOTS} roots, got {roots.numel()}")
+
+
+def component_stats_xyz(flat_labels, roots, nx: int, ny: int, nz: int):
+    """(R, 4) f32 [count, sum_i, sum_j, sum_k] per root over labels flattened
+    in the volume's (x, y, z) C-order (the label values are (z, y, x) raster
+    indices). Roots may come in any order and repeat; sums are exact int64
+    rounded to f32. Rows whose root is BIG are zero: on the TPU they count
+    background and a block-size-dependent padding, and every caller masks
+    them (`root_valid`)."""
+    _check_stats("component_stats_xyz", flat_labels, roots)
+    if not _on_cuda(flat_labels, roots):
+        return component_stats_xyz_plain(flat_labels, roots, nx, ny, nz)
+    return _stats_launch("component_stats_xyz", flat_labels, roots, nx, ny, nz, 0)
+
+
+def component_stats_raster(flat_labels, roots, nx: int, ny: int):
+    """`component_stats_xyz` over labels flattened in (z, y, x) raster order."""
+    _check_stats("component_stats_raster", flat_labels, roots)
+    if not _on_cuda(flat_labels, roots):
+        return component_stats_raster_plain(flat_labels, roots, nx, ny)
+    return _stats_launch("component_stats_raster", flat_labels, roots, nx, ny, 1, 1)
+
+
+def _stats_launch(name, flat, roots, nx, ny, nz, order):
+    srt = torch.sort(roots).values
+    r = roots.numel()
+    acc = torch.zeros((r, 4), dtype=torch.int64, device=flat.device)
+    out = torch.empty((r, 4), dtype=torch.float32, device=flat.device)
+    _launch(name, "mamri_component_stats", flat.data_ptr(), flat.numel(), roots.data_ptr(), srt.data_ptr(),
+            r, nx, ny, nz, order, acc.data_ptr(), out.data_ptr())
+    return out
+
+
+def component_stats_xyz_plain(flat_labels, roots, nx: int, ny: int, nz: int):
+    """Plain twin of `component_stats_xyz`."""
+    def decode(f):
+        gi = f // (ny * nz)
+        rem = f - gi * (ny * nz)
+        return gi, rem // nz, rem % nz
+
+    return _component_stats_sums(flat_labels, roots, decode)
+
+
+def component_stats_raster_plain(flat_labels, roots, nx: int, ny: int):
+    """Plain twin of `component_stats_raster`."""
+    return _component_stats_sums(flat_labels, roots, lambda f: (f % nx, (f // nx) % ny, f // (nx * ny)))
+
+
+def _component_stats_sums(lab, roots, decode):
+    """searchsorted into the sorted roots + index_add_ in int64."""
+    srt = torch.sort(roots).values
+    r = roots.numel()
+    idx = torch.searchsorted(srt, lab)
+    hit = (lab != BIG) & (idx < r) & (srt[idx.clamp(max=r - 1)] == lab)
+    pos = torch.nonzero(hit).squeeze(1)
+    gi, gj, gk = decode(pos)
+    feats = torch.stack([torch.ones_like(pos), gi, gj, gk], dim=1)
+    acc = torch.zeros((r, 4), dtype=torch.int64, device=lab.device).index_add_(0, idx[pos], feats)
+    out = acc[torch.searchsorted(srt, roots)].to(torch.float32)
+    return torch.where((roots == BIG)[:, None], 0.0, out)
+
+
 # --------------------------------------------- the Pallas functions' contracts
 def compute_reset_distances(reset):
     """int8 0/1 (nx, ny, nz) -> (dfx, dbx, dfy, dby, dfz, dbz)."""
@@ -424,3 +576,41 @@ def ccl_check_consistency(lab, dists):
 def ccl_check_consistency_x(lab, dists):
     """The x part of the fixed-point check only."""
     return check(lab, dists[0], 0, new_flag(lab.device))
+
+
+def segmented_min_scan_lines(lab, reset):
+    """Bidirectional segmented min over the last axis of (L, N) int32."""
+    return scan_lines(lab, reset)
+
+
+def ccl_sweep_pallas(lab, reset_i32):
+    """One full sweep (z, then y, then x; both directions) of the line-scan
+    kernel over (nx, ny, nz) int32 labels, with transposes bringing each axis
+    last. `reset_i32` is int32 0/1. Returns new labels."""
+    nx, ny, nz = lab.shape
+    lab = scan_lines(lab.contiguous().view(nx * ny, nz), reset_i32.contiguous().view(nx * ny, nz))
+    lab = lab.view(nx, ny, nz)
+    for perm, back in (((0, 2, 1), (0, 2, 1)), ((1, 2, 0), (2, 0, 1))):
+        lab_t = lab.permute(perm).contiguous()
+        reset_t = reset_i32.permute(perm).contiguous()
+        shape_t = lab_t.shape
+        lab = scan_lines(lab_t.reshape(-1, shape_t[2]), reset_t.reshape(-1, shape_t[2]))
+        lab = lab.reshape(shape_t).permute(back)
+    return lab.contiguous()
+
+
+def extract_root_candidates(labels, nx: int, ny: int, k: int = 8):
+    """(candidates (nblocks*k,), block_counts (nblocks,), num_components ())."""
+    tab = root_candidates(labels, nx, ny, k)
+    counts = tab[:, k]
+    return tab[:, :k].reshape(-1), counts, counts.sum(dtype=torch.int32)
+
+
+def component_stats_matmul(flat_labels, roots, nx: int, ny: int):
+    """(R, 4) stats over the (z, y, x)-raster flattening of the labels."""
+    return component_stats_raster(flat_labels, roots, nx, ny)
+
+
+def component_stats_matmul_xyz(flat_labels, roots, nx: int, ny: int, nz: int):
+    """(R, 4) stats over labels flattened in their (x, y, z) C-order."""
+    return component_stats_xyz(flat_labels, roots, nx, ny, nz)

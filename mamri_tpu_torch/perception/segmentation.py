@@ -1,20 +1,28 @@
-"""Fiducial + body segmentation: threshold -> ball(2) closing -> CCL -> stats.
+"""Fiducial + body segmentation: threshold -> ball closing -> CCL -> stats.
 
-Port of the fused kernel branch of `mamri_tpu.perception.segmentation`
-(`segment_volume`, segmentation.py:591-644): every step runs through the
-wrappers of `gpu_ops` (CUDA kernels on the card, plain twins on the CPU).
+Port of the kernel branches of `mamri_tpu.perception.segmentation`
+(`segment_volume`, segmentation.py:591-666): every kernel step runs through
+the wrappers of `gpu_ops` (CUDA kernels on the card, plain twins on the CPU).
+
+- The fused branch (`closing_radius == 2`, the engine's default): one
+  threshold + ball(2) closing + label-init kernel, the run-length sweeps,
+  and stats over the volume's z-run decomposition.
+- The non-fused branch (any other radius): `binary_close` in plain torch,
+  the same run-length sweeps, then root detection and a two-level blocked
+  top-k over the whole volume and voxel stats (`component_stats_xyz`).
 
 Labels are each component's minimum (z, y, x) raster index, so component
-order is ITK's raster-scan label order. Stats come from the volume's z-run
-decomposition. Every budget is certified, with the same sub-certificates
-as the reference (`count_ok`, `cand_ok`, `runs_ok`, `compact_ok`), so the
-engine's escalation reads them unchanged. The geometry of the certificates
-is the TPU's: (8, 8, 128) padding, y padded to 128 in the run tables, root
-candidates per (8 x, 128 y)-line block.
+order is ITK's raster-scan label order. Every budget is certified, with the
+same sub-certificates as the reference (`count_ok`, `cand_ok`, `runs_ok`,
+`compact_ok`), so the engine's escalation reads them unchanged. The geometry
+of the certificates is the TPU's: (8, 8, 128) padding, y padded to 128 in
+the run tables, root candidates per (8 x, 128 y)-line block, 2048 top-k
+blocks in the non-fused branch.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -31,9 +39,12 @@ MAX_ROOTS = 256
 class SegmentationParams(NamedTuple):
     """Same fields and defaults as mamri_tpu's SegmentationParams.
 
-    The port has one path, the kernel branch, so `use_pallas` and
-    `exhaustive_roots` (which select among the reference's other paths) are
-    carried only so that parameters cross over unchanged."""
+    The branch is chosen as the reference chooses it on its accelerator:
+    fused iff `closing_radius == 2` and `use_pallas` is not False. Both
+    branches run the port's kernels; `use_pallas=False` takes the non-fused
+    one, whose outputs are those of the reference's jnp path. In it,
+    `exhaustive_roots` takes one flat top-k over the volume in place of the
+    blocked one."""
 
     intensity_low: float = 65.0  # must be finite
     intensity_high: float = 65535.0
@@ -70,6 +81,45 @@ class SegmentationResult(NamedTuple):
     compact_ok: torch.Tensor  # compact stats: n_runs <= cap
 
 
+def _ball_offsets(radius: int):
+    r = int(radius)
+    rng = range(-r, r + 1)
+    return tuple((dx, dy, dz) for dx in rng for dy in rng for dz in rng if dx * dx + dy * dy + dz * dz <= r * r)
+
+
+def _shift3(a, off):
+    """Shift a 3-D array by `off`. `torch.roll` wraps around exactly as
+    `jnp.roll` does; the wrapped voxels land in the 2r margin that
+    `binary_close` pads and crops, which is what makes it exact."""
+    return torch.roll(a, shifts=(-off[0], -off[1], -off[2]), dims=(-3, -2, -1))
+
+
+def binary_close(mask, radius: int = 2):
+    """Morphological closing of a bool volume with a Euclidean ball, safe
+    borders: padded by 2r so the dilation never clips and the wraparound of
+    the shifts stays in the cropped margin. (The reference decomposes
+    radius 2 into separable passes for speed; the full offset reduction
+    gives the same mask, and the engine's radius 2 runs `close_init`.)"""
+    if radius <= 0:
+        return mask
+    pad = 2 * radius
+    p = torch.nn.functional.pad(mask.to(torch.uint8), (pad,) * 6).bool()
+    offs = _ball_offsets(radius)
+    dil = functools.reduce(torch.logical_or, (_shift3(p, o) for o in offs))
+    ero = functools.reduce(torch.logical_and, (_shift3(dil, o) for o in offs))
+    return ero[pad:-pad, pad:-pad, pad:-pad]
+
+
+def _init_labels(mask):
+    """(z, y, x) raster index k*nx*ny + j*nx + i where `mask`, BIG elsewhere."""
+    nx, ny, nz = mask.shape
+    dev = mask.device
+    i = torch.arange(nx, dtype=torch.int32, device=dev)[:, None, None]
+    j = torch.arange(ny, dtype=torch.int32, device=dev)[None, :, None]
+    k = torch.arange(nz, dtype=torch.int32, device=dev)[None, None, :]
+    return torch.where(mask, k * (nx * ny) + j * nx + i, BIG)
+
+
 def _pad_for_kernels(lab0, reset):
     """Pad to the (8, 8, 128) multiples the certificates are defined on.
     Padding is background (label BIG, reset 1): inert under every pass."""
@@ -98,6 +148,66 @@ def _ccl_sweeps_from_dists(lab0, dists, max_sweeps: int, passes: Optional[int] =
     else:
         bad = gpu_ops.ccl_check_consistency(lab, dists)
     return lab, bad[0] == 0
+
+
+def _ccl_sweeps_pallas(lab0, reset, max_sweeps: int, passes: Optional[int] = None):
+    """Sweeps over padded arrays from their reset volume (labels updated in
+    place). Returns (labels, converged)."""
+    dists = gpu_ops.compute_reset_distances(reset.to(torch.int8).contiguous())
+    return _ccl_sweeps_from_dists(lab0, dists, max_sweeps, passes)
+
+
+def connected_components(mask, max_sweeps: int = 8):
+    """6-connectivity CCL of a bool volume: label = the component's minimum
+    (z, y, x) raster index, BIG for background."""
+    lab0, reset = _pad_for_kernels(_init_labels(mask), (~mask).to(torch.int8))
+    labels, _ = _ccl_sweeps_pallas(lab0, reset, max_sweeps)
+    nx, ny, nz = mask.shape
+    return labels[:nx, :ny, :nz]
+
+
+def _component_stats(labels, max_roots: int, exhaustive: bool = False):
+    """Roots, counts and index-coordinate sums of up to `max_roots`
+    components, over the unpadded labels in their (x, y, z) C-order.
+
+    A voxel is its component's root iff its label is its own raster index;
+    the `max_roots` smallest roots are taken by a two-level top-k (2048
+    blocks, `min(max_roots, 64)` per block) when the volume has >= 2^20
+    voxels, else (or when `exhaustive`) by one flat top-k. Returns (roots,
+    root_valid, counts, sums_ijk, num_components, complete): `complete` is
+    False when num_components > max_roots or a block held more roots than
+    its share."""
+    nx, ny, nz = labels.shape
+    n = nx * ny * nz
+    dev = labels.device
+    flat = labels.reshape(n).contiguous()
+    f = torch.arange(n, dtype=torch.int32, device=dev)
+    gi = f // (ny * nz)
+    rem = f - gi * (ny * nz)
+    gj = rem // nz
+    gk = rem - gj * nz
+    lin = gi + nx * (gj + ny * gk)
+    is_root = (flat == lin) & (flat != BIG)
+    num_components = is_root.sum(dtype=torch.int32)
+    complete = num_components <= max_roots
+
+    root_keys = torch.where(is_root, -lin, -BIG)
+    if n >= (1 << 20) and not exhaustive:
+        nblocks = 2048
+        per_block = min(max_roots, 64)
+        pad = (-n) % nblocks
+        if pad:
+            root_keys = torch.cat([root_keys, root_keys.new_full((pad,), -BIG)])
+            is_root = torch.cat([is_root, is_root.new_zeros(pad)])
+        block_counts = is_root.reshape(nblocks, -1).sum(1)
+        complete = complete & (block_counts <= per_block).all()
+        blk = torch.topk(root_keys.reshape(nblocks, -1), per_block, dim=1).values
+        keys = torch.topk(blk.reshape(-1), max_roots).values
+    else:
+        keys = torch.topk(root_keys, max_roots).values
+    roots = -keys  # ascending root indices, BIG where there is no component
+    stats = gpu_ops.component_stats_matmul_xyz(flat, roots, nx, ny, nz)
+    return roots, roots != BIG, stats[:, 0], stats[:, 1:4], num_components, complete
 
 
 def _pow2ceil(v: int) -> int:
@@ -176,31 +286,42 @@ def _component_stats_fast(labels_padded, dists, shape, max_roots: int, cand_k: i
 def _validate(params: SegmentationParams):
     if not (math.isfinite(params.intensity_low) and math.isfinite(params.intensity_high)):
         raise ValueError("intensity thresholds must be finite")
-    if params.closing_radius != 2:
-        raise NotImplementedError(
-            "closing_radius != 2 (the non-fused segmentation branch) is not ported yet: "
-            "see ROADMAP.md, queue A, 'the closing_radius != 2 branch'"
-        )
 
 
 def segment_volume(data, spacing, origin, params: SegmentationParams = SegmentationParams()) -> SegmentationResult:
     """Full fiducial + body segmentation of one (nx, ny, nz) volume tensor,
     on the volume's device. Integer scanner volumes are cast to f32 there."""
     _validate(params)
+    fused = params.closing_radius == 2 and params.use_pallas is not False
     dev = data.device
     data = data.to(torch.float32).contiguous()
     spacing = torch.as_tensor(spacing, dtype=torch.float32, device=dev)
     origin = torch.as_tensor(origin, dtype=torch.float32, device=dev)
 
-    mask, lab0 = gpu_ops.close_init(data, params.intensity_low, params.intensity_high)
-    lab0, reset = _pad_for_kernels(lab0, (mask == 0).to(torch.int8))
-    dists = gpu_ops.compute_reset_distances(reset)
-    labels_padded, converged = _ccl_sweeps_from_dists(lab0, dists, params.max_sweeps, params.passes)
-    (labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-     count_ok, cand_ok, runs_ok, compact_ok) = _component_stats_fast(
-        labels_padded, dists, data.shape, params.max_roots,
-        cand_k=params.cand_k, run_k=params.run_k, compact=params.compact_stats,
-    )
+    if fused:
+        mask, lab0 = gpu_ops.close_init(data, params.intensity_low, params.intensity_high)
+        lab0, reset = _pad_for_kernels(lab0, (mask == 0).to(torch.int8))
+        dists = gpu_ops.compute_reset_distances(reset)
+        labels_padded, converged = _ccl_sweeps_from_dists(lab0, dists, params.max_sweeps, params.passes)
+        (labels, roots, root_valid, counts, sums_ijk, num_components, complete,
+         count_ok, cand_ok, runs_ok, compact_ok) = _component_stats_fast(
+            labels_padded, dists, data.shape, params.max_roots,
+            cand_k=params.cand_k, run_k=params.run_k, compact=params.compact_stats,
+        )
+    else:
+        closed = binary_close((data >= params.intensity_low) & (data <= params.intensity_high),
+                              params.closing_radius)
+        lab0, reset = _pad_for_kernels(_init_labels(closed), (~closed).to(torch.int8))
+        labels_padded, converged = _ccl_sweeps_pallas(lab0, reset, params.max_sweeps, params.passes)
+        nx, ny, nz = data.shape
+        labels = labels_padded[:nx, :ny, :nz]
+        roots, root_valid, counts, sums_ijk, num_components, complete = _component_stats(
+            labels, params.max_roots, exhaustive=params.exhaustive_roots
+        )
+        # only the count and blocked top-k budgets exist here, and `complete`
+        # covers both: count_ok carries it, so the engine raises max_roots
+        count_ok = complete
+        cand_ok = runs_ok = compact_ok = torch.ones((), dtype=torch.bool, device=dev)
     return finalize_segmentation(
         labels, roots, root_valid, counts, sums_ijk, num_components, complete, converged,
         spacing, origin, params, count_ok, cand_ok, runs_ok, compact_ok,

@@ -78,7 +78,55 @@ def test_kernels_equal_their_twins(cuda, shape):
     _same(G.run_stats(run_lab, run_len, run_z0, roots), G.run_stats_plain(run_lab, run_len, run_z0, roots))
     cols = S.compact_runs(run_lab, run_len, run_z0, 4096)[:5]
     _same(G.run_stats_compact(*cols, roots), G.run_stats_compact_plain(*cols, roots))
+
+    # the non-fused branch's and the parity harness's kernels
+    lab_u = lab0[:nx, :ny, : shape[2]].contiguous()
+    reset_u = (lab_u == G.BIG).to(torch.int32)
+    for axis in (2, 1, 0):
+        lines = lab_u.movedim(axis, -1).contiguous().reshape(-1, shape[axis])
+        r_lines = reset_u.movedim(axis, -1).contiguous().reshape(-1, shape[axis])
+        _same(G.scan_lines(lines, r_lines), G.scan_lines_plain(lines, r_lines))
+    mixed = torch.randint(0, 1 << 20, (37, 333), dtype=torch.int32, device=cuda)
+    r_mixed = (torch.rand((37, 333), device=cuda) < 0.3).to(torch.int32)
+    _same(G.scan_lines(mixed, r_mixed), G.scan_lines_plain(mixed, r_mixed))
+    for k in (1, 8, 16):
+        _same(G.root_candidates(lab, nx, ny, k), G.root_candidates_plain(lab, nx, ny, k))
+    lab_c = lab[:nx, :ny, : shape[2]].contiguous()
+    repeated = torch.cat([roots[:1], roots, torch.full((3,), G.BIG, dtype=torch.int32, device=cuda)])
+    flat = lab_c.reshape(-1)
+    _same(G.component_stats_xyz(flat, repeated, *shape), G.component_stats_xyz_plain(flat, repeated, *shape))
+    raster = lab_c.permute(2, 1, 0).contiguous().reshape(-1)
+    _same(G.component_stats_raster(raster, repeated, nx, ny), G.component_stats_raster_plain(raster, repeated, nx, ny))
     assert all(n > 0 for n in G.LAUNCHES.values()), G.LAUNCHES
+
+
+def test_stats_large_sums_and_many_roots(cuda):
+    """A body whose coordinate sums pass 2^24 beside 960 single-voxel roots."""
+    shape = (160, 160, 96)
+    nx, ny, nz = shape
+    lab = torch.full(shape, G.BIG, dtype=torch.int32, device=cuda)
+    lab[8:, 8:, :] = 8 * nx + 8
+    i = torch.arange(64, device=cuda).repeat_interleave(64)
+    j = torch.arange(64, device=cuda).repeat(64)
+    keep = (i < 8) | (j < 8)
+    lab[i[keep], j[keep], 0] = (j[keep] * nx + i[keep]).to(torch.int32)
+    roots = torch.unique(lab[lab != G.BIG]).to(torch.int32)
+    flat = lab.reshape(-1)
+    got = G.component_stats_xyz(flat, roots, *shape)
+    _same(got, G.component_stats_xyz_plain(flat, roots, *shape))
+    assert float(got[:, 1].max()) > 2**24
+
+
+def test_nonfused_segment_volume_cuda_equals_cpu(cuda):
+    data = _volume((80, 80, 80), seed=6)
+    params = S.SegmentationParams(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
+    spacing, origin = np.ones(3, np.float32), np.zeros(3, np.float32)
+    G.reset_launch_counts()
+    on_card = S.segment_volume(torch.as_tensor(data).to(cuda), spacing, origin, params)
+    on_cpu = S.segment_volume(torch.as_tensor(data), spacing, origin, params)
+    for name, a, b in zip(on_cpu._fields, on_card, on_cpu):
+        assert torch.equal(a.cpu(), b), name
+    assert G.LAUNCHES["component_stats_xyz"] == 1 and G.LAUNCHES["close_init"] == 0
 
 
 def test_segment_volume_cuda_equals_cpu(cuda):
@@ -96,8 +144,14 @@ def test_cuda_tensors_never_reach_a_twin(cuda, monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain twin")
 
     for name in ("close_init_plain", "reset_distances_plain", "run_min_plain", "check_plain", "z_runs_plain",
-                 "run_stats_plain", "run_stats_compact_plain"):
+                 "run_stats_plain", "run_stats_compact_plain", "scan_lines_plain", "root_candidates_plain",
+                 "component_stats_xyz_plain", "component_stats_raster_plain"):
         monkeypatch.setattr(G, name, refuse)
     data = torch.as_tensor(_volume((40, 40, 40), seed=4)).to(cuda)
     S.segment_volume(data, np.ones(3, np.float32), np.zeros(3, np.float32), S.SegmentationParams(max_roots=512))
+    S.segment_volume(data, np.ones(3, np.float32), np.zeros(3, np.float32), S.SegmentationParams(closing_radius=3))
+    lab = S.connected_components(data > 65.0, max_sweeps=4)
+    G.extract_root_candidates(S._pad_for_kernels(lab, (lab == G.BIG).to(torch.int8))[0], 40, 40)
+    G.ccl_sweep_pallas(lab, (lab == G.BIG).to(torch.int32))
+    G.component_stats_matmul(lab.permute(2, 1, 0).contiguous().reshape(-1), lab.reshape(-1)[:8].contiguous(), 40, 40)
     torch.cuda.synchronize()

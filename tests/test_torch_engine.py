@@ -8,6 +8,7 @@ TCP within 0.05 mm (the wrist is bounded only by gauge freedom,
 docs/ARCHITECTURE.md section 4a); motor steps within +-1.
 """
 
+import itertools
 import logging
 import os
 import subprocess
@@ -25,10 +26,12 @@ from mamri_tpu.core import transforms as jT
 from mamri_tpu.core.robot import fk_all_links as j_fk
 from mamri_tpu.core.robot import marker_world_positions
 from mamri_tpu.ik.residuals import solve_full_chain_ik as j_solve
+from mamri_tpu.perception.segmentation import SegmentationParams as JaxSegParams
 from mamri_tpu.perception.volume import synthetic_volume
 from mamri_tpu_torch.api.engine import MamriEngine
 from mamri_tpu_torch.core.robot import load_robot_model
 from mamri_tpu_torch.ik.residuals import solve_full_chain_ik as t_solve
+from mamri_tpu_torch.perception.segmentation import SegmentationParams
 from mamri_tpu_torch.perception.volume import Volume
 
 TRUE_ANGLES = np.array([0.3, -0.7, 0.5, 0.2, -0.4, 0.6], dtype=np.float32)
@@ -142,6 +145,53 @@ def test_roots_escalation_matches_jax(jax_engine, scene, caplog):
     _compare(jax_engine, jres, teng, tres, base)
 
 
+def test_nonfused_radius1_matches_jax(jax_engine):
+    """`closing_radius=1` takes the non-fused branch in both engines (JAX's
+    jnp path on the CPU, whose outputs equal its kernels' on a certified
+    scene), on the 2.5 mm scene."""
+    vol, base = _scene(jax_engine.model, 2.5)
+    params = dict(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
+    jeng = JaxEngine(seg_params=JaxSegParams(**params), ik_restarts=0)
+    jres = jeng.estimate_pose(vol)
+    teng = MamriEngine(seg_params=SegmentationParams(**params), ik_restarts=0, device="cpu")
+    tres = teng.estimate_pose(Volume(vol.data, vol.spacing, vol.origin))
+    assert tres.success and all(tres.markers_found.values())
+    assert np.rad2deg(np.abs(tres.angles_rad[:3] - TRUE_ANGLES[:3])).max() < 1.0
+    _compare(jeng, jres, teng, tres, base)
+
+
+@pytest.mark.parametrize("use_pallas", [None, False])
+def test_escalation_steps_match_jax(use_pallas, scene, monkeypatch):
+    """Every escalation step equals the reference's from the same
+    certificates, and the engine takes the reference's jnp-path rule
+    (a failed blocked top-k turns on `exhaustive_roots`) exactly when
+    `use_pallas` is False."""
+    jnp_path = use_pallas is False
+    start = dict(max_sweeps=2, passes=3, max_roots=128, use_pallas=use_pallas)
+    for converged, complete, blobs, count_ok, cand_ok in itertools.product((False, True), repeat=5):
+        certs = dict(count_ok=count_ok, cand_ok=cand_ok, runs_ok=True, compact_ok=True, jnp_path=jnp_path)
+        want = JaxEngine._escalate_seg_params(JaxSegParams(**start), converged, complete, blobs, **certs)
+        got = MamriEngine._escalate_seg_params(SegmentationParams(**start), converged, complete, blobs, **certs)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert got._asdict() == want._asdict()
+
+    seen = []
+    escalate = MamriEngine._escalate_seg_params
+
+    def spy(params, *args, **kwargs):
+        seen.append(kwargs["jnp_path"])
+        return escalate(params, *args, **kwargs)
+
+    monkeypatch.setattr(MamriEngine, "_escalate_seg_params", staticmethod(spy))
+    vol, _ = scene
+    starved = SegmentationParams(max_roots=8, max_blobs=8, use_pallas=use_pallas)  # 13 components
+    teng = MamriEngine(seg_params=starved, ik_restarts=0, device="cpu")
+    assert teng.estimate_pose(Volume(vol.data, vol.spacing, vol.origin)).success
+    assert seen and all(s == jnp_path for s in seen)
+    assert bool(teng.last_segmentation["roots_complete"])
+
+
 def test_full_chain_ik_with_jax_restart_draws():
     """`num_random_restarts=2` at the engine's 24 iterations, the port fed
     JAX's exact uniform draws through `restart_guesses`."""
@@ -205,16 +255,36 @@ def test_engine_options():
 
 
 def test_port_imports_without_jax():
-    """With jax made unimportable, the port's package, engine and kernels'
-    module import and a CPU engine builds."""
+    """With jax made unimportable, the port's package, engine, kernels'
+    module and parity harness import, a CPU `estimate_pose` solves a scene,
+    and no module of jax or of the JAX package `mamri_tpu` was loaded."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
         "import mamri_tpu_torch\n"
         "from mamri_tpu_torch.api.engine import MamriEngine\n"
-        "from mamri_tpu_torch.perception import gpu_ops, segmentation\n"
-        "e = MamriEngine(device='cpu')\n"
+        "from mamri_tpu_torch.core import transforms as T\n"
+        "from mamri_tpu_torch.core.robot import marker_world_positions\n"
+        "from mamri_tpu_torch.perception import gpu_ops, parity, segmentation\n"
+        "from mamri_tpu_torch.perception.volume import synthetic_volume\n"
+        "e = MamriEngine(device='cpu', ik_restarts=0)\n"
         "assert e.model.num_joints == 6\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items() if v is not None)\n"
+        "truth = torch.tensor([0.3, -0.7, 0.5, 0.2, -0.4, 0.6])\n"
+        "base = T.translate(torch.tensor([-60.0, -120.0, 0.0])) @ T.rot_x(-np.pi / 2) @ T.rot_z(0.15)\n"
+        "pts = torch.cat([marker_world_positions(e.model, truth, ln, base)\n"
+        "                 for ln in ('Baseplate', 'Joint2', 'Joint4', 'Joint6')]).numpy()\n"
+        "lo, hi = pts.min(0) - 30, pts.max(0) + 30\n"
+        "origin = np.array([-hi[0], -hi[1], lo[2]], np.float32)\n"
+        "shape = tuple(int(np.ceil(x)) for x in (hi - lo) / 3.0)\n"
+        "vol = synthetic_volume(shape=shape, spacing=(3.0, 3.0, 3.0), origin=origin, fiducials_ras=pts,\n"
+        "                       fiducial_radius_mm=4.0)\n"
+        "res = e.estimate_pose(vol)\n"
+        "assert res.success and all(res.markers_found.values()), res\n"
+        "assert float(abs(res.angles_rad[0] - 0.3)) < 0.02, res.angles_rad\n"
+        "assert type(res).__module__ == 'mamri_tpu_torch.api.types'\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in loaded)\n"
+        "assert not any(m == 'mamri_tpu' or m.startswith('mamri_tpu.') for m in loaded), loaded\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

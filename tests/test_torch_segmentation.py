@@ -1,7 +1,8 @@
 """The port's segment_volume against mamri_tpu's, on the same numpy volumes.
 
 JAX runs both of its branches on the CPU: the Pallas kernels in interpret
-mode (`use_pallas=True`) and the jnp path (`use_pallas=False`). Exact:
+mode (`use_pallas=True`) and the jnp path (`use_pallas=False`); the port
+takes its fused and its non-fused branch for the same values. Exact:
 labels, body mask, blob validity, volumes, component counts and every
 certificate; centroids within 1e-4 mm (f32 arithmetic in another order).
 """
@@ -52,7 +53,7 @@ def _compare(tres, jres):
 def test_segment_volume_matches_jax(shape, use_pallas):
     data, spacing, origin = _volume(shape, seed=shape[0])
     jp = jseg.SegmentationParams(max_sweeps=2, passes=3, max_roots=128, use_pallas=use_pallas)
-    tp = tseg.SegmentationParams(max_sweeps=2, passes=3, max_roots=128)
+    tp = tseg.SegmentationParams(max_sweeps=2, passes=3, max_roots=128, use_pallas=use_pallas)
     jres = jseg.segment_volume(jnp.asarray(data), spacing, origin, jp)
     tres = tseg.segment_volume(torch.as_tensor(data), spacing, origin, tp)
     assert bool(tres.ccl_converged) and bool(tres.roots_complete) and int(tres.num_blobs) >= 4
@@ -98,10 +99,8 @@ def test_integer_volume_is_cast_on_device():
         assert torch.equal(x, y)
 
 
-def test_nonfused_branch_is_not_ported():
+def test_thresholds_are_checked():
     data, spacing, origin = _volume((48, 48, 48), seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tseg.segment_volume(torch.as_tensor(data), spacing, origin, tseg.SegmentationParams(closing_radius=3))
     with pytest.raises(ValueError, match="finite"):
         tseg.segment_volume(torch.as_tensor(data), spacing, origin, tseg.SegmentationParams(intensity_high=np.inf))
     assert G.BIG == jseg._BIG
