@@ -10,7 +10,16 @@
    256^3, at 80^3 (a shape that does not divide the (8, 8, 128) tiles) and
    at 512x512x192, and times both (CUDA events, median of 5) beside the
    kernel's bound (the bytes it must move at 3.35 TB/s, or its operations
-   at 67 T/s, whichever is larger).
+   at 67 T/s, whichever is larger). Each timed launch follows a 128 MB
+   read that flushes the 50 MB L2 (and writes its dirty lines back before
+   the timer starts), so a kernel moves to and from device memory the
+   bytes its bound counts; a spin kernel then keeps the card busy while
+   the host enqueues the timed call, so no host time lies between the
+   events. Times are kept per variant of a kernel
+   (`reset_distances[z]`, `run_min[y.2]`, `root_candidates[k16]`, ...).
+   Then `segment_volume` alone on the device-resident scans, both
+   branches at 256^3 and 512x512x192: one warm-up, p50 of 5 (host clock,
+   each call ends in a synchronize).
 3. Runs `MamriEngine(device="cuda").estimate_pose` on bench.py's canonical
    scene rendered into 256^3 (random-free synthetic scan, known pose): one
    warm-up, then 5 timed calls. Checks the pose against the truth.
@@ -27,7 +36,9 @@
 Each path (phases 3-5, 6, 7) runs with the launch counts set to 0 just
 before it and read just after it; every kernel of a path must have launched
 in it. The last two lines are the kernels' JSON and the result JSON; any
-failure raises and exits non-zero. Without CUDA it exits 1 and prints no
+failure raises and exits non-zero. A kernel's JSON entry gives its slowest
+variant at 256^3 (`ms`, `plain_ms`, `bound_ms` of that variant) and every
+variant's times in `ms_by_variant`. Without CUDA it exits 1 and prints no
 result.
 """
 
@@ -62,6 +73,7 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
 # kernels' 32-bit integer operations (compares, mins, adds) are counted
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+SPIN_CYCLES = 4_000_000  # ~2.4 ms at 1.7 GHz: longer than the host takes to enqueue a timed call
 
 
 def bound(nbytes, nops):
@@ -78,15 +90,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_FLUSH = []
+
+
+def flush_l2():
+    """Read 128 MB (over twice the H100's 50 MB L2): evicts whatever a
+    kernel would find cached and writes the dirty lines back now, so the
+    next kernel pays for neither. (A write would leave L2 full of dirty
+    lines for the timed kernel to write back.)"""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.extend([torch.ones(32 << 20, dtype=torch.float32, device="cuda"),
+                       torch.empty((), dtype=torch.float32, device="cuda")])
+    torch.sum(_FLUSH[0], dim=0, out=_FLUSH[1])
+
+
 def med_ms(fn, make_args, reps=REPS):
-    """Median CUDA-event time of fn(*make_args()) over `reps` runs (the
-    arguments are made outside the timed region)."""
+    """Median CUDA-event time of fn(*make_args()) over `reps` runs, each
+    launched with the L2 flushed (arguments made and L2 flushed outside the
+    timed region) and queued behind a spin kernel, so that the start event
+    fires when the card reaches the call, not before the host has issued
+    it."""
     import torch
 
     fn(*make_args())  # warm-up
     times = []
     for _ in range(reps):
         args = make_args()
+        flush_l2()
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
@@ -199,7 +232,7 @@ def compare_kernels(data_np, label, card, failures, timings):
     n = data.numel()
     errs = {}
 
-    def record(name, got, want, fn=None, plain=None, make_args=None, nbytes=0, nops=0):
+    def record(name, got, want, fn=None, plain=None, make_args=None, nbytes=0, nops=0, variant=None):
         got = got if isinstance(got, (tuple, list)) else (got,)
         want = want if isinstance(want, (tuple, list)) else (want,)
         err = 0.0
@@ -213,18 +246,20 @@ def compare_kernels(data_np, label, card, failures, timings):
         if err != 0.0:
             failures.append(f"{label} {name}: max |kernel - twin| = {err}")
         errs[name] = max(errs.get(name, 0.0), err)
+        tag = f"{name}[{variant}]" if variant else name
         if fn is None:
-            print(f"kernel {label} {name}: max_abs_err={err}")
+            print(f"kernel {label} {tag}: max_abs_err={err}")
             return
         kernel_ms, plain_ms = med_ms(fn, make_args), med_ms(plain, make_args)
         bound_ms, bound_by = bound(nbytes, nops)
-        timings.setdefault(label, {})[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
-        print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        timings.setdefault(label, {}).setdefault(name, {})[variant or name] = (kernel_ms, plain_ms, bound_ms,
+                                                                               bound_by)
+        print(f"kernel {label} {tag}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B) ({card})")
 
-    def both(name, fn, plain, make_args, nbytes, nops):
+    def both(name, fn, plain, make_args, nbytes, nops, variant=None):
         got, want = fn(*make_args()), plain(*make_args())
-        record(name, got, want, fn, plain, make_args, nbytes, nops)
+        record(name, got, want, fn, plain, make_args, nbytes, nops, variant)
         return got
 
     lo, hi = 65.0, 65535.0
@@ -235,23 +270,25 @@ def compare_kernels(data_np, label, card, failures, timings):
     dists = []
     for axis in (0, 1, 2):
         dists.extend(both("reset_distances", g.reset_distances, g.reset_distances_plain,
-                          lambda: (reset, axis), 5 * npad, 4 * npad))
+                          lambda: (reset, axis), 5 * npad, 4 * npad, "xyz"[axis]))
 
     # the engine's schedule [yz, x, yz], each half-sweep held against the twin
     lab = lab0.clone()
-    for axis in (1, 2, 0, 1, 2):
+    for step, axis in enumerate((1, 2, 0, 1, 2)):
         df, db = dists[2 * axis], dists[2 * axis + 1]
         a, fa = lab.clone(), g.new_flag(dev)
         b, fb = lab.clone(), g.new_flag(dev)
         g.run_min(a, df, db, axis, fa)
         g.run_min_plain(b, df, db, axis, fb)
         record("run_min", (a, fa), (b, fb), g.run_min, g.run_min_plain,
-               lambda: (lab.clone(), df, db, axis, g.new_flag(dev)), 12 * npad, 2 * npad)
+               lambda: (lab.clone(), df, db, axis, g.new_flag(dev)), 12 * npad, 2 * npad,
+               f"{'xyz'[axis]}.{step // 3 + 1}")
         lab = a
-    for labels in (lab0, lab):
+    for state, labels in (("init", lab0), ("swept", lab)):
         for axis in (0, 1, 2):
             df = dists[2 * axis]
-            both("check", g.check, g.check_plain, lambda: (labels, df, axis, g.new_flag(dev)), 6 * npad, 3 * npad)
+            both("check", g.check, g.check_plain, lambda: (labels, df, axis, g.new_flag(dev)), 6 * npad, 3 * npad,
+                 f"{'xyz'[axis]} {state}")
 
     k, cand_k = 8, 8
     nyq = -(-lab.shape[1] // 128) * 128
@@ -280,14 +317,14 @@ def compare_kernels(data_np, label, card, failures, timings):
         lines = plain_sweep.movedim(axis, -1).contiguous()
         r_lines = reset_u.movedim(axis, -1).contiguous()
         args = (lines.reshape(-1, lines.shape[-1]), r_lines.reshape(-1, lines.shape[-1]))
-        both("scan_lines", g.scan_lines, g.scan_lines_plain, lambda: args, 12 * n, 4 * n)
+        both("scan_lines", g.scan_lines, g.scan_lines_plain, lambda: args, 12 * n, 4 * n, "xyz"[axis])
         plain_sweep = g.scan_lines_plain(*args).reshape(lines.shape).movedim(-1, axis).contiguous()
     record("scan_lines", g.ccl_sweep_pallas(lab_u, reset_u), plain_sweep)
 
     fg = int((lab != g.BIG).sum())
     for kk in (8, 16):
         both("root_candidates", g.root_candidates, g.root_candidates_plain, lambda: (lab, nx, ny, kk),
-             4 * npad + 4 * (lab.shape[0] // 8) * (kk + 1), 2 * npad + 8 * fg)
+             4 * npad + 4 * (lab.shape[0] // 8) * (kk + 1), 2 * npad + 8 * fg, f"k{kk}")
 
     lab_c = lab[:nx, :ny, :nz].contiguous()
     flat = lab_c.reshape(-1)
@@ -298,6 +335,28 @@ def compare_kernels(data_np, label, card, failures, timings):
     both("component_stats_raster", g.component_stats_raster, g.component_stats_raster_plain,
          lambda: (raster, roots, nx, ny), 4 * n + 20 * r, 2 * n + hits * per_hit)
     return errs
+
+
+def time_segmentation(vol, label, params, card):
+    """p50 of REPS `segment_volume` calls on a device-resident scan (host
+    clock; each call ends in torch.cuda.synchronize())."""
+    import torch
+    from mamri_tpu_torch.perception.segmentation import segment_volume
+
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(np.asarray(vol.data)).to(dev), torch.as_tensor(vol.spacing, dtype=torch.float32).to(dev),
+            torch.as_tensor(vol.origin, dtype=torch.float32).to(dev), params)
+    segment_volume(*args)  # warm-up
+    lat = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segment_volume(*args)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(lat))
+    print(f"segment_volume {label} p50_ms={p50:.3f} all_ms={[round(x, 3) for x in lat]} ({card})")
+    return p50
 
 
 # ---------------------------------------------------- phases 3-5: the path
@@ -416,6 +475,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernels disagree with their twins:\n" + "\n".join(failures))
+    fused = SegmentationParams(max_sweeps=2, passes=3, max_roots=128)  # the engine's defaults
+    nonfused = SegmentationParams(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
+    for label, vol in (("256^3", vol256), ("512x512x192", vol512)):
+        time_segmentation(vol, f"fused {label}", fused, card)
+        time_segmentation(vol, f"non-fused {label}", nonfused, card)
 
     # ---- phases 3-5: the default path; counts from here on are the path's
     gpu_ops.reset_launch_counts()
@@ -456,7 +520,6 @@ def main() -> int:
 
     # ---- phase 6: the non-fused branch (closing_radius != 2)
     gpu_ops.reset_launch_counts()
-    nonfused = SegmentationParams(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
     engine = MamriEngine(device="cuda", seg_params=nonfused)
     engine.estimate_pose(vol256)  # warm-up
     per_call["nonfused"] = dict(gpu_ops.LAUNCHES)
@@ -484,7 +547,8 @@ def main() -> int:
     main_t = timings["256^3"]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
-        ms, plain_ms, bound_ms, bound_by = main_t[name]
+        variants = main_t[name]
+        ms, plain_ms, bound_ms, bound_by = max(variants.values(), key=lambda v: v[0])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -497,6 +561,7 @@ def main() -> int:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "ms_by_variant": {v: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]} for v, t in variants.items()},
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(card)

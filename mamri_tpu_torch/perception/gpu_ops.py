@@ -115,12 +115,12 @@ def close_init(data, lo: float, hi: float):
     lo, hi = float(torch.tensor(lo, dtype=torch.float32)), float(torch.tensor(hi, dtype=torch.float32))
     if not _on_cuda(data):
         return close_init_plain(data, lo, hi)
-    scratch = torch.empty((nx + 4, ny + 4, nz + 4), dtype=torch.int8, device=data.device)
+    band = torch.empty((nx, ny, -(-nz // 32)), dtype=torch.int32, device=data.device)  # z packed 32 a word
     mask = torch.empty(data.shape, dtype=torch.int8, device=data.device)
     lab = torch.empty(data.shape, dtype=torch.int32, device=data.device)
     _launch(
         "close_init", "mamri_close_init",
-        data.data_ptr(), scratch.data_ptr(), mask.data_ptr(), lab.data_ptr(), nx, ny, nz, lo, hi,
+        data.data_ptr(), band.data_ptr(), mask.data_ptr(), lab.data_ptr(), nx, ny, nz, lo, hi,
     )
     return mask, lab
 

@@ -100,6 +100,75 @@ def test_kernels_equal_their_twins(cuda, shape):
     assert all(n > 0 for n in G.LAUNCHES.values()), G.LAUNCHES
 
 
+# z lengths on both sides of close_init's 32-voxel words
+WORD_EDGE_SHAPES = [(9, 10, 31), (8, 8, 33), (6, 7, 64), (5, 6, 65), (3, 4, 1)]
+
+
+def _faces_volume(shape, seed):
+    """An in-band body touching all six faces, with NaN and +-inf voxels."""
+    rng = np.random.default_rng(seed)
+    data = np.where(rng.random(shape) < 0.5, 100.0, 10.0).astype(np.float32)
+    for face in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+        data[face] = 100.0
+    data[rng.random(shape) < 0.05] = np.nan
+    data[rng.random(shape) < 0.03] = np.inf
+    data[rng.random(shape) < 0.03] = -np.inf
+    return data
+
+
+@pytest.mark.parametrize("shape", WORD_EDGE_SHAPES + [(17, 18, 300), (40, 33, 50)])
+def test_close_init_word_edges_equal_twin(cuda, shape):
+    data = torch.as_tensor(_faces_volume(shape, seed=sum(shape))).to(cuda)
+    for lo, hi in ((65.0, 65535.0), (-1.0, 50.0)):  # the body, then its complement
+        _same(G.close_init(data, lo, hi), G.close_init_plain(data, lo, hi))
+
+
+def _reset_lines(shape, seed):
+    """int8 reset volume whose z lines cycle through: all reset, never reset,
+    alternating, only index 0, only index n - 1, sparse and dense noise."""
+    rng = np.random.default_rng(seed)
+    reset = np.zeros(shape, np.int8)
+    for line, (i, j) in enumerate(np.ndindex(*shape[:2])):
+        pattern = line % 7
+        if pattern == 0:
+            reset[i, j] = 1
+        elif pattern == 2:
+            reset[i, j, ::2] = 1
+        elif pattern == 3:
+            reset[i, j, 0] = 1
+        elif pattern == 4:
+            reset[i, j, -1] = 1
+        elif pattern >= 5:
+            reset[i, j] = rng.random(shape[2]) < (0.02 if pattern == 5 else 0.5)
+    return reset
+
+
+@pytest.mark.parametrize(
+    "shape",
+    WORD_EDGE_SHAPES
+    + [(8, 8, 384)]
+    + [(4, 3, n) for n in (1, 31, 32, 33, 129, 4097)]  # z lines within, at and past a warp's chunk
+    + [(130, 6, 8), (3, 140, 12), (3000, 2, 4), (12800, 1, 3)],  # long strided lines, both lane widths
+)
+def test_reset_distances_equal_twin(cuda, shape):
+    reset = torch.as_tensor(_reset_lines(shape, seed=sum(shape))).to(cuda)
+    for axis in (0, 1, 2):
+        _same(G.reset_distances(reset, axis), G.reset_distances_plain(reset, axis))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(4, 4, 8), (8, 8, 384)])
+def test_reset_distances_of_an_unaligned_view(cuda, shape, offset):
+    """A contiguous view that starts off a 4-byte boundary takes the byte-wide path."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 4, dtype=torch.int8, device=cuda)
+    reset = buf[offset:offset + n].view(shape)
+    reset.copy_(torch.as_tensor(_reset_lines(shape, seed=offset)))
+    assert reset.data_ptr() % 4 == offset
+    for axis in (0, 1, 2):
+        _same(G.reset_distances(reset, axis), G.reset_distances_plain(reset, axis))
+
+
 def test_stats_large_sums_and_many_roots(cuda):
     """A body whose coordinate sums pass 2^24 beside 960 single-voxel roots."""
     shape = (160, 160, 96)

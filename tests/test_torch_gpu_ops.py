@@ -46,26 +46,62 @@ def _init_labels(mask):
     return np.where(mask, k * nx * ny + j * nx + i, BIG).astype(np.int32)
 
 
+def _line_patterns_mask(shape=(8, 8, 384)):
+    """z lines (several 128-voxel chunks each) that are all reset, never
+    reset, alternating, reset only at index 0, reset only at index n - 1."""
+    reset = np.zeros(shape, bool)
+    for i in range(shape[0]):
+        for j in range(shape[1]):
+            pattern = (i * shape[1] + j) % 5
+            if pattern == 0:
+                reset[i, j] = True
+            elif pattern == 2:
+                reset[i, j, ::2] = True
+            elif pattern == 3:
+                reset[i, j, 0] = True
+            elif pattern == 4:
+                reset[i, j, -1] = True
+    return ~reset
+
+
 TILE = (16, 16, 128)
 MASKS = {
     "blobs": lambda: _blob_mask(TILE, 3),
     "background": lambda: np.zeros(TILE, bool),
     "full": lambda: np.ones(TILE, bool),
+    "lines": _line_patterns_mask,
 }
+# z lengths on both sides of the 32-voxel words close_init packs z into
+WORD_EDGE_SHAPES = [(9, 10, 31), (8, 8, 33), (6, 7, 64), (5, 6, 65), (3, 4, 1)]
 
 
-# ----------------------------------------------------------------- close_init
-@pytest.mark.parametrize("case", ["random", "nan", "background", "full"])
-def test_close_init_matches_pallas(case):
-    rng = np.random.default_rng(2)
-    data = (rng.random((16, 24, 20)) * 100).astype(np.float32)  # does not divide the tiles
-    if case == "nan":
-        data[rng.random(data.shape) < 0.05] = np.nan
-        data[3, 4, 5] = np.inf
+def _close_data(case, shape, seed=2):
+    rng = np.random.default_rng(seed)
+    data = (rng.random(shape) * 100).astype(np.float32)
+    if case in ("faces", "faces-nan"):  # an in-band body touching all six faces
+        data = np.where(rng.random(shape) < 0.5, 100.0, 10.0).astype(np.float32)
+        for face in (np.s_[0], np.s_[-1], np.s_[:, 0], np.s_[:, -1], np.s_[:, :, 0], np.s_[:, :, -1]):
+            data[face] = 100.0
+    if case in ("nan", "faces-nan"):
+        data[rng.random(shape) < 0.05] = np.nan
+        data[rng.random(shape) < 0.03] = np.inf
+        data[rng.random(shape) < 0.03] = -np.inf
+        data[(0,) * 3] = np.inf
     elif case == "background":
         data[:] = 10.0
     elif case == "full":
         data[:] = 100.0
+    return data
+
+
+# ----------------------------------------------------------------- close_init
+@pytest.mark.parametrize(
+    "case,shape",
+    [pytest.param(c, (16, 24, 20), id=c) for c in ("random", "nan", "background", "full")]  # off the tiles
+    + [pytest.param(c, s, id=f"{c}-{'x'.join(map(str, s))}") for s in WORD_EDGE_SHAPES for c in ("faces", "faces-nan")],
+)
+def test_close_init_matches_pallas(case, shape):
+    data = _close_data(case, shape)
     want_mask, want_lab = P.fused_threshold_close_init(jnp.asarray(data), 65.0, 65535.0, interpret=True)
     mask, lab = G.close_init(_t(data), 65.0, 65535.0)
     assert mask.dtype == torch.int8 and lab.dtype == torch.int32
