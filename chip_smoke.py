@@ -10,7 +10,9 @@
    256^3, at 80^3 (a shape that does not divide the (8, 8, 128) tiles) and
    at 512x512x192, and times both (CUDA events, median of 5) beside the
    kernel's bound (the bytes it must move at 3.35 TB/s, or its operations
-   at 67 T/s, whichever is larger). Each timed launch follows a 128 MB
+   at 67 T/s, whichever is larger; for `run_min` and `z_runs`, whose
+   traffic depends on the data, the bytes this volume needs, with the
+   bytes of every input and output counted whole printed beside them). Each timed launch follows a 128 MB
    read that flushes the 50 MB L2 (and writes its dirty lines back before
    the timer starts), so a kernel moves to and from device memory the
    bytes its bound counts; a spin kernel then keeps the card busy while
@@ -19,7 +21,8 @@
    (`reset_distances[z]`, `run_min[y.2]`, `root_candidates[k16]`, ...).
    Then `segment_volume` alone on the device-resident scans, both
    branches at 256^3 and 512x512x192: one warm-up, p50 of 5 (host clock,
-   each call ends in a synchronize).
+   each call ends in a synchronize), and its device time (CUDA events
+   behind a spin that outlasts the host's enqueue of the whole call).
 3. Runs `MamriEngine(device="cuda").estimate_pose` on bench.py's canonical
    scene rendered into 256^3 (random-free synthetic scan, known pose): one
    warm-up, then 5 timed calls. Checks the pose against the truth.
@@ -74,6 +77,7 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 SPIN_CYCLES = 4_000_000  # ~2.4 ms at 1.7 GHz: longer than the host takes to enqueue a timed call
+SEGMENT_SPIN_CYCLES = 40_000_000  # ~24 ms: longer than the host takes to enqueue a whole segment_volume
 
 
 def bound(nbytes, nops):
@@ -106,7 +110,7 @@ def flush_l2():
     torch.sum(_FLUSH[0], dim=0, out=_FLUSH[1])
 
 
-def med_ms(fn, make_args, reps=REPS):
+def med_ms(fn, make_args, reps=REPS, spin=SPIN_CYCLES):
     """Median CUDA-event time of fn(*make_args()) over `reps` runs, each
     launched with the L2 flushed (arguments made and L2 flushed outside the
     timed region) and queued behind a spin kernel, so that the start event
@@ -119,7 +123,7 @@ def med_ms(fn, make_args, reps=REPS):
     for _ in range(reps):
         args = make_args()
         flush_l2()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn(*args)
@@ -232,7 +236,8 @@ def compare_kernels(data_np, label, card, failures, timings):
     n = data.numel()
     errs = {}
 
-    def record(name, got, want, fn=None, plain=None, make_args=None, nbytes=0, nops=0, variant=None):
+    def record(name, got, want, fn=None, plain=None, make_args=None, nbytes=0, nops=0, variant=None,
+               contract_bytes=None):
         got = got if isinstance(got, (tuple, list)) else (got,)
         want = want if isinstance(want, (tuple, list)) else (want,)
         err = 0.0
@@ -254,8 +259,9 @@ def compare_kernels(data_np, label, card, failures, timings):
         bound_ms, bound_by = bound(nbytes, nops)
         timings.setdefault(label, {}).setdefault(name, {})[variant or name] = (kernel_ms, plain_ms, bound_ms,
                                                                                bound_by)
+        contract = "" if contract_bytes is None else f", {contract_bytes} B counting every input and output whole"
         print(f"kernel {label} {tag}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B) ({card})")
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B{contract}) ({card})")
 
     def both(name, fn, plain, make_args, nbytes, nops, variant=None):
         got, want = fn(*make_args()), plain(*make_args())
@@ -280,9 +286,11 @@ def compare_kernels(data_np, label, card, failures, timings):
         b, fb = lab.clone(), g.new_flag(dev)
         g.run_min(a, df, db, axis, fa)
         g.run_min_plain(b, df, db, axis, fb)
+        # what this step needs: every label and df read, the labels that change written (db bounds
+        # the same runs as df, so the function can do without it)
         record("run_min", (a, fa), (b, fb), g.run_min, g.run_min_plain,
-               lambda: (lab.clone(), df, db, axis, g.new_flag(dev)), 12 * npad, 2 * npad,
-               f"{'xyz'[axis]}.{step // 3 + 1}")
+               lambda: (lab.clone(), df, db, axis, g.new_flag(dev)), 6 * npad + 4 * int((b != lab).sum()),
+               2 * npad, f"{'xyz'[axis]}.{step // 3 + 1}", contract_bytes=12 * npad)
         lab = a
     for state, labels in (("init", lab0), ("swept", lab)):
         for axis in (0, 1, 2):
@@ -294,13 +302,17 @@ def compare_kernels(data_np, label, card, failures, timings):
     nyq = -(-lab.shape[1] // 128) * 128
     m = lab.shape[0] * k * nyq
     nblocks = (lab.shape[0] // 8) * (nyq // 128)
-    run_lab, run_z0, run_len, cands = both(
-        "z_runs", g.z_runs, g.z_runs_plain, lambda: (lab, dists[4], dists[5], nx, ny, k, cand_k),
-        8 * npad + 12 * m + 4 * nblocks * (cand_k + 1), 2 * npad)[:4]
+    z_args = (lab, dists[4], dists[5], nx, ny, k, cand_k)
+    z_got = g.z_runs(*z_args)
+    run_lab, run_z0, run_len, cands = z_got[:4]
+    runs = int((run_len > 0).sum())
+    # what this volume needs: dfz read, the tables and roots written, label and dbz of each run kept
+    z_out = 12 * m + 4 * nblocks * (cand_k + 1)
+    record("z_runs", z_got, g.z_runs_plain(*z_args), g.z_runs, g.z_runs_plain, lambda: z_args,
+           2 * npad + z_out + 6 * runs, 2 * npad, contract_bytes=8 * npad + z_out)
     roots = torch.topk(cands, min(256, cands.numel()), largest=False).values.contiguous()
     r = roots.numel()
     per_hit = int(np.ceil(np.log2(r))) + 10
-    runs = int((run_len > 0).sum())
     both("run_stats", g.run_stats, g.run_stats_plain, lambda: (run_lab, run_len, run_z0, roots),
          12 * m + 20 * r, 2 * m + runs * per_hit)
     cols = compact_runs(run_lab, run_len, run_z0, 32768)[:5]
@@ -338,8 +350,11 @@ def compare_kernels(data_np, label, card, failures, timings):
 
 
 def time_segmentation(vol, label, params, card):
-    """p50 of REPS `segment_volume` calls on a device-resident scan (host
-    clock; each call ends in torch.cuda.synchronize())."""
+    """(p50 of REPS `segment_volume` calls on a device-resident scan by the
+    host clock, each call ending in torch.cuda.synchronize(); the median
+    device time of the same call, CUDA events behind a spin long enough for
+    the host to have enqueued all of it, so that no launch waits for the
+    host)."""
     import torch
     from mamri_tpu_torch.perception.segmentation import segment_volume
 
@@ -355,8 +370,10 @@ def time_segmentation(vol, label, params, card):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     p50 = float(np.median(lat))
-    print(f"segment_volume {label} p50_ms={p50:.3f} all_ms={[round(x, 3) for x in lat]} ({card})")
-    return p50
+    device_ms = med_ms(segment_volume, lambda: args, spin=SEGMENT_SPIN_CYCLES)
+    print(f"segment_volume {label} p50_ms={p50:.3f} all_ms={[round(x, 3) for x in lat]} "
+          f"device_ms={device_ms:.3f} ({card})")
+    return p50, device_ms
 
 
 # ---------------------------------------------------- phases 3-5: the path

@@ -8,7 +8,7 @@ kernels and runs this checkout's chip_smoke.py phase 2 on it at 256^3 and
 512x512x192: every kernel of chip_smoke.KERNELS held against its twin and
 timed at chip_smoke's variant keys (`reset_distances[z]`, `run_min[y.2]`,
 ...; L2 flushed, median of chip_smoke.REPS), then `segment_volume` on both
-branches. DIR must define every wrapper chip_smoke calls (true of the
+branches (host-clock p50 and device time). DIR must define every wrapper chip_smoke calls (true of the
 package since all its kernels were ported). The last line is one JSON
 object of the times. To compare two commits on one card, unpack the other
 into a git-ignored directory (`git archive`) and run both in one call:
@@ -63,7 +63,9 @@ def main() -> int:
             for variant, (ms, *_rest) in variants.items():
                 times[f"{label} {name}" + (f"[{variant}]" if variant != name else "")] = ms
         for branch, params in branches.items():
-            times[f"{label} segment_volume {branch}"] = cs.time_segmentation(vol, f"{branch} {label}", params, card)
+            host_ms, device_ms = cs.time_segmentation(vol, f"{branch} {label}", params, card)
+            times[f"{label} segment_volume {branch}"] = host_ms
+            times[f"{label} segment_volume {branch} device"] = device_ms
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernels disagree with their twins:\n" + "\n".join(failures))

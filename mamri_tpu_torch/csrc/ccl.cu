@@ -23,21 +23,22 @@
 //     columns and splits the axis into 8 warp segments of 32-index mask
 //     words. df and db are then __clz / __ffs of a masked word plus a carry,
 //     written 8 B a lane (reset_dist_lines_kernel, reset_dist_strips_kernel);
-//   * run_min (one thread per line): every voxel of a maximal foreground
-//     run (bounded by df/db) gets the minimum label of that run -- exactly
-//     what the TPU's doubling ladder computes. A change ORs 1 into a device
-//     flag. Labels only ever
-//     decrease, so the flags ORed over axes mean "anything changed";
+//   * run_min: every voxel of a maximal foreground run (bounded by df/db)
+//     gets the minimum label of that run -- exactly what the TPU's doubling
+//     ladder computes. A change ORs 1 into a device flag. Labels only ever
+//     decrease, so the flags ORed over axes mean "anything changed". Bound
+//     by bytes: 12 B a voxel by its contract (label in and out, df, db). A
+//     thread walking a whole line diverges from its warp at every run
+//     boundary, chains its loads and, along z, touches a sector per label;
+//     so along z a warp owns a line and joins its lanes with a segmented
+//     shuffle scan, and along x and y a block owns a strip of columns whose
+//     rows its warps walk in step, one coalesced row a load
+//     (run_min_lines_kernel, run_min_strips_kernel). Each label and df is
+//     read once, db never, and only the labels that change are written;
 //   * check: one thread per voxel; bad iff df >= 2 (the -axis neighbour is in
 //     the same run) and the two labels differ. 0 over all axes certifies the
-//     exact CCL fixed point.
-//
-// What bounds run_min and check: memory traffic, one pass over labels (read +
-// write) and the two int16 distance arrays per axis. Lines along x and y are
-// numbered so that neighbouring threads touch neighbouring z addresses
-// (coalesced); along z each thread walks contiguous memory and relies on L1.
-// A run is read twice (min, then write), which keeps the thread's state to a
-// few registers.
+//     exact CCL fixed point. Bound by bytes: 6 B a voxel, neighbouring
+//     threads on neighbouring addresses for every axis.
 
 #include "common.cuh"
 
@@ -289,9 +290,374 @@ __global__ void __launch_bounds__(RD_MAX_SEGS * 32)
       if (m[v]) cb[v] = c * 32 + __ffs(m[v]) - 1;
   }
 }
-__global__ void run_min_kernel(int32_t* __restrict__ lab, const int16_t* __restrict__ df,
-                               const int16_t* __restrict__ db, int n0, int n1, int n2, int axis,
-                               int32_t* __restrict__ changed) {
+
+// -------------------------------------------------------------------- run_min
+// A voxel starts a run iff df <= 1 (df == 0 is background, a run of its own
+// that keeps its label), so a run ends where the next voxel starts one or the
+// line ends: df alone bounds the runs and db is never read by the two kernels
+// below. Both make one forward walk that leaves f = the minimum from the
+// run's start up to the voxel in shared memory (with a bit per voxel for "a
+// start" and for "f differs from the label"), and one backward walk
+// g = next voxel starts ? f : min(f, g) that turns f into the run's minimum.
+// A voxel is written iff its label changes: g != f or the forward bit.
+// Scans are mostly background, so both walks take a whole warp step in a few
+// instructions where a vote finds every voxel of it a run of its own: a
+// volume of runs everywhere is bound by the walks' instructions instead.
+
+#define RM_MAX_SEGS 16    // axis segments (one warp each) per block of the strided kernel
+#define RM_ROWS 8         // rows a lane of the strided kernel loads before it looks at them
+#define RM_LINE_WARPS 8   // lines (one warp each) per block of the contiguous kernel
+#define RM_SMEM_MAX (227 * 1024)
+#define RM_SMEM_SHARE (74 * 1024)  // three blocks on an SM
+
+// V labels and their V df, two to a word. df >= 0, so a voxel starts a run
+// (df <= 1) iff its df has no bit above the lowest.
+template <int V>
+__device__ __forceinline__ void rm_load(const int32_t* lab, const int16_t* df, int32_t (&l)[V],
+                                        uint32_t (&d)[(V + 1) / 2]) {
+  if constexpr (V == 4) {
+    const int4 t = *reinterpret_cast<const int4*>(lab);
+    const uint2 w = *reinterpret_cast<const uint2*>(df);
+    l[0] = t.x, l[1] = t.y, l[2] = t.z, l[3] = t.w;
+    d[0] = w.x, d[1] = w.y;
+  } else if constexpr (V == 2) {
+    const int2 t = *reinterpret_cast<const int2*>(lab);
+    l[0] = t.x, l[1] = t.y;
+    d[0] = *reinterpret_cast<const uint32_t*>(df);
+  } else {
+    l[0] = *lab;
+    d[0] = (uint16_t)*df;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ bool rm_start(const uint32_t (&d)[(V + 1) / 2], int v) {
+  return ((d[v / 2] >> (16 * (v & 1))) & 0xfffeu) == 0u;
+}
+
+template <int V>
+__device__ __forceinline__ void rm_load(const int32_t* lab, const int16_t* df, int32_t (&l)[V],
+                                        bool (&s)[V]) {
+  uint32_t d[(V + 1) / 2];
+  rm_load<V>(lab, df, l, d);
+#pragma unroll
+  for (int v = 0; v < V; ++v) s[v] = rm_start<V>(d, v);
+}
+
+__device__ __forceinline__ void rm_flag(bool chg, int32_t* changed) {
+  // one atomic per block at most, and none once the flag is up
+  if (__syncthreads_or(chg) && threadIdx.x == 0 && *(volatile int32_t*)changed == 0)
+    atomicOr(changed, 1);
+}
+
+// Strided lines (inner > 1), read as (outer, len, inner) like reset_distances:
+// a block owns C = 32 V consecutive columns and all `len` rows of them, and
+// splits the rows into `segs` segments of whole 32-row chunks, one warp each.
+// A lane walks its V columns down the segment (one warp load is 32 V
+// consecutive labels of one row). The segments then exchange, per column,
+// the minimum of their leading open run (`head`, the rows before the first
+// start), of their trailing one (`tail`) and whether they hold a start, and
+// each folds its neighbours' records into the carries cf (what the run holds
+// before the segment) and cb (after it, the backward walk's first g).
+template <int V>
+__global__ void __launch_bounds__(RM_MAX_SEGS * 32)
+    run_min_strips_kernel(int32_t* __restrict__ lab, const int16_t* __restrict__ df, long long cols,
+                          int len, long long inner, int32_t* __restrict__ changed) {
+  extern __shared__ uint32_t rd_smem[];
+  constexpr int C = 32 * V, W = (V + 1) / 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, segs = blockDim.x >> 5;
+  const int nchunks = (len + 31) >> 5;
+  int32_t* tile = (int32_t*)rd_smem;                          // [row][v][lane]: f
+  uint32_t* masks = rd_smem + (size_t)len * C;                // [chunk][start, dirty][v][lane]
+  int32_t* seg_head = (int32_t*)(masks + (size_t)nchunks * 2 * C);  // [segment][v][lane]
+  int32_t* seg_tail = seg_head + segs * C;
+  int32_t* seg_start = seg_tail + segs * C;  // bit 0: holds a start, bit 1: its first row is one
+  const long long q = (long long)blockIdx.x * C + V * lane;  // the lane's first column
+  const bool live = q < cols;
+  const long long o = q / inner;
+  const long long base = o * len * inner + (q - o * inner);  // element (o, 0, c)
+  const int c0 = warp * nchunks / segs, c1 = (warp + 1) * nchunks / segs;
+
+  int32_t m[V], head[V];
+  int first[V];  // the segment's first start
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    m[v] = head[v] = MAMRI_BIG;
+    first[v] = len;
+  }
+  for (int c = c0; c < c1; ++c) {
+    uint32_t st[V], dirty[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) st[v] = dirty[v] = 0u;
+#pragma unroll
+    for (int r0 = 0; r0 < 32; r0 += RM_ROWS) {
+      int32_t l[RM_ROWS][V];
+      uint32_t d[RM_ROWS][W], any = 0u;
+#pragma unroll
+      for (int u = 0; u < RM_ROWS; ++u) {
+        const int i = c * 32 + r0 + u;
+#pragma unroll
+        for (int v = 0; v < V; ++v) l[u][v] = MAMRI_BIG;
+#pragma unroll
+        for (int w = 0; w < W; ++w) d[u][w] = 0u;  // rows past the end: background
+        if (live && i < len)
+          rm_load<V>(lab + base + (long long)i * inner, df + base + (long long)i * inner, l[u], d[u]);
+#pragma unroll
+        for (int w = 0; w < W; ++w) any |= d[u][w];
+      }
+      // whole rows of background and 1-row runs: f is the label
+      if (c * 32 + r0 + RM_ROWS <= len && __all_sync(RD_FULL, (any & 0xfffefffeu) == 0u)) {
+#pragma unroll
+        for (int u = 0; u < RM_ROWS; ++u) {
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            tile[((size_t)(c * 32 + r0 + u) * V + v) * 32 + lane] = l[u][v];
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          m[v] = l[RM_ROWS - 1][v];
+          st[v] |= ((1u << RM_ROWS) - 1u) << r0;
+        }
+        continue;
+      }
+#pragma unroll
+      for (int u = 0; u < RM_ROWS; ++u) {
+        const int i = c * 32 + r0 + u;
+        if (i < len) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const bool s = rm_start<V>(d[u], v);
+            m[v] = s ? l[u][v] : min(m[v], l[u][v]);
+            st[v] |= (s ? 1u : 0u) << (r0 + u);
+            dirty[v] |= (m[v] != l[u][v] ? 1u : 0u) << (r0 + u);
+            tile[((size_t)i * V + v) * 32 + lane] = m[v];
+          }
+        }
+      }
+    }
+    if (len - c * 32 < 32) {  // no start bits past the end of the line
+#pragma unroll
+      for (int v = 0; v < V; ++v) st[v] &= (1u << (len - c * 32)) - 1u;
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      masks[((size_t)(c * 2 + 0) * V + v) * 32 + lane] = st[v];
+      masks[((size_t)(c * 2 + 1) * V + v) * 32 + lane] = dirty[v];
+      if (first[v] == len && st[v]) first[v] = c * 32 + __ffs(st[v]) - 1;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    // no start before `first`, so f of the row before it is the leading run's minimum
+    if (live && first[v] > c0 * 32)
+      head[v] = first[v] == len ? m[v] : tile[((size_t)(first[v] - 1) * V + v) * 32 + lane];
+    seg_head[(warp * V + v) * 32 + lane] = head[v];
+    seg_tail[(warp * V + v) * 32 + lane] = m[v];
+    seg_start[(warp * V + v) * 32 + lane] = (first[v] != len ? 1 : 0) | (first[v] == c0 * 32 ? 2 : 0);
+  }
+  __syncthreads();
+
+  bool chg = false;
+  int32_t cf[V], g[V];
+  uint32_t nxt[V];  // the row after the chunk at hand starts a run
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    cf[v] = g[v] = MAMRI_BIG;
+    nxt[v] = warp + 1 < segs ? (uint32_t)seg_start[((warp + 1) * V + v) * 32 + lane] >> 1 : 1u;
+    for (int s = warp - 1; s >= 0; --s) {
+      cf[v] = min(cf[v], seg_tail[(s * V + v) * 32 + lane]);
+      if (seg_start[(s * V + v) * 32 + lane]) break;
+    }
+    for (int s = warp + 1; s < segs; ++s) {
+      g[v] = min(g[v], seg_head[(s * V + v) * 32 + lane]);
+      if (seg_start[(s * V + v) * 32 + lane]) break;
+    }
+  }
+  for (int c = c1 - 1; c >= c0; --c) {
+    uint32_t st[V], dirty[V], ends[V];
+    bool quiet = true;  // every row a run of its own, the last one too: nothing to write
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      st[v] = masks[((size_t)(c * 2 + 0) * V + v) * 32 + lane];
+      quiet &= (st[v] == RD_FULL && nxt[v]) || !live;
+    }
+    if (__all_sync(RD_FULL, quiet)) continue;  // (nxt stays 1, and g is not read past a start)
+    if (live) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        dirty[v] = masks[((size_t)(c * 2 + 1) * V + v) * 32 + lane];
+        ends[v] = (st[v] >> 1) | (nxt[v] << 31);  // bit r: row r + 1 starts a run
+        nxt[v] = st[v] & 1u;
+      }
+#pragma unroll
+      for (int r = 31; r >= 0; --r) {
+        const int i = c * 32 + r;
+        if (i < len) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const int32_t f = tile[((size_t)i * V + v) * 32 + lane];
+            g[v] = (ends[v] >> r) & 1u ? f : min(f, g[v]);
+            const int32_t out = i < first[v] ? min(g[v], cf[v]) : g[v];
+            if (out != f || ((dirty[v] >> r) & 1u)) {
+              lab[base + (long long)i * inner + v] = out;
+              chg = true;
+            }
+          }
+        }
+      }
+    }
+  }
+  rm_flag(chg, changed);
+}
+
+// Contiguous lines (inner == 1): one warp per line, V labels a lane, so a
+// warp reads CH = 32 V consecutive labels per step. A lane scans its V
+// voxels, a 5-step segmented shuffle scan joins the lanes (a lane takes from
+// the lanes below it only while none of them holds a start), and the chunk's
+// last lane carries the open run into the next chunk; the backward walk is
+// the mirror image over f and the start ballots kept in shared memory. Cells
+// past the end of the line act as background.
+template <int V>
+__global__ void __launch_bounds__(RM_LINE_WARPS * 32)
+    run_min_lines_kernel(int32_t* __restrict__ lab, const int16_t* __restrict__ df, long long lines,
+                         int len, int32_t* __restrict__ changed) {
+  extern __shared__ uint32_t rd_smem[];
+  constexpr int CH = 32 * V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long line = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const int nchunks = (len + CH - 1) / CH;
+  int32_t* tile = (int32_t*)rd_smem + (size_t)warp * nchunks * (CH + 2 * V);  // [chunk][v][lane]: f
+  uint32_t* masks = (uint32_t*)(tile + (size_t)nchunks * CH);  // [chunk][start, dirty][v]: ballots
+  const long long base = line * len;
+  bool chg = false;
+  if (line < lines) {  // the whole warp
+    int32_t carry = MAMRI_BIG;  // the open run's minimum at the end of the chunks already walked
+    int32_t l[V], ln[V];
+    bool s[V], sn[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) l[v] = MAMRI_BIG, s[v] = true;
+    if (V * lane < len) rm_load<V>(lab + base + V * lane, df + base + V * lane, l, s);
+    for (int c = 0; c < nchunks; ++c) {
+      const int pos = c * CH + V * lane;
+#pragma unroll
+      for (int v = 0; v < V; ++v) ln[v] = MAMRI_BIG, sn[v] = true;
+      if (pos + CH < len) rm_load<V>(lab + base + pos + CH, df + base + pos + CH, ln, sn);
+      bool lone = true;
+#pragma unroll
+      for (int v = 0; v < V; ++v) lone &= s[v];
+      if (__all_sync(RD_FULL, lone)) {  // background, 1-voxel runs: f is the label
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          tile[((size_t)c * V + v) * 32 + lane] = l[v];
+          if (lane == 0) {
+            masks[(c * 2 + 0) * V + v] = RD_FULL;
+            masks[(c * 2 + 1) * V + v] = 0u;
+          }
+        }
+        carry = __shfl_sync(RD_FULL, l[V - 1], 31);
+#pragma unroll
+        for (int v = 0; v < V; ++v) l[v] = ln[v], s[v] = sn[v];
+        continue;
+      }
+      int32_t f[V], mv = MAMRI_BIG;
+      int lead = V;  // the lane's voxels before its first start
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (s[v] && lead == V) lead = v;
+        mv = s[v] ? l[v] : min(mv, l[v]);
+        f[v] = mv;
+      }
+      int fl = lead < V;  // lanes 0..lane hold a start
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t vs = __shfl_up_sync(RD_FULL, mv, d);
+        const int fs = __shfl_up_sync(RD_FULL, fl, d);
+        if (lane >= d) {
+          if (!fl) mv = min(mv, vs);
+          fl |= fs;
+        }
+      }
+      int32_t in = __shfl_up_sync(RD_FULL, mv, 1);  // the open run's minimum before this lane
+      const int in_fl = __shfl_up_sync(RD_FULL, fl, 1);
+      if (lane == 0) in = carry;
+      else if (!in_fl) in = min(in, carry);
+      const int32_t top = __shfl_sync(RD_FULL, mv, 31);
+      carry = __shfl_sync(RD_FULL, fl, 31) ? top : min(top, carry);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (v < lead) f[v] = min(f[v], in);
+        tile[((size_t)c * V + v) * 32 + lane] = f[v];
+        const uint32_t bs = __ballot_sync(RD_FULL, s[v]);
+        const uint32_t bd = __ballot_sync(RD_FULL, f[v] != l[v]);
+        if (lane == 0) {
+          masks[(c * 2 + 0) * V + v] = bs;
+          masks[(c * 2 + 1) * V + v] = bd;
+        }
+        l[v] = ln[v], s[v] = sn[v];
+      }
+    }
+    __syncwarp();
+
+    carry = MAMRI_BIG;      // the rest of the open run in the chunks already walked
+    uint32_t nxt = 1u;      // the voxel after the chunk at hand starts a run
+    for (int c = nchunks - 1; c >= 0; --c) {
+      const int pos = c * CH + V * lane;
+      bool quiet = nxt;  // every voxel a run of its own, the last one too: nothing to write
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        quiet &= masks[(c * 2 + 0) * V + v] == RD_FULL && masks[(c * 2 + 1) * V + v] == 0u;
+      if (quiet) continue;  // (nxt stays 1, and a chunk that ends in a start reads no carry)
+      int32_t f[V], g[V], mv = MAMRI_BIG;
+      bool ends[V], dirty[V];
+      int trail = -1;  // the lane's last voxel that ends a run
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        f[v] = tile[((size_t)c * V + v) * 32 + lane];
+        dirty[v] = (masks[(c * 2 + 1) * V + v] >> lane) & 1u;
+      }
+      const uint32_t first = masks[(c * 2 + 0) * V];  // start bits of every lane's voxel 0
+#pragma unroll
+      for (int v = 0; v < V - 1; ++v) ends[v] = (masks[(c * 2 + 0) * V + v + 1] >> lane) & 1u;
+      ends[V - 1] = lane == 31 ? nxt : (first >> (lane + 1)) & 1u;
+      nxt = first & 1u;
+#pragma unroll
+      for (int v = V - 1; v >= 0; --v) {
+        if (ends[v] && trail < 0) trail = v;
+        mv = ends[v] ? f[v] : min(f[v], mv);
+        g[v] = mv;
+      }
+      int fl = trail >= 0;  // lanes lane..31 hold the end of a run
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t vs = __shfl_down_sync(RD_FULL, mv, d);
+        const int fs = __shfl_down_sync(RD_FULL, fl, d);
+        if (lane + d < 32) {
+          if (!fl) mv = min(mv, vs);
+          fl |= fs;
+        }
+      }
+      int32_t in = __shfl_down_sync(RD_FULL, mv, 1);
+      const int in_fl = __shfl_down_sync(RD_FULL, fl, 1);
+      if (lane == 31) in = carry;
+      else if (!in_fl) in = min(in, carry);
+      const int32_t bottom = __shfl_sync(RD_FULL, mv, 0);
+      carry = __shfl_sync(RD_FULL, fl, 0) ? bottom : min(bottom, carry);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (v > trail) g[v] = min(g[v], in);
+        if (pos + v < len && (g[v] != f[v] || dirty[v])) {
+          lab[base + pos + v] = g[v];
+          chg = true;
+        }
+      }
+    }
+  }
+  rm_flag(chg, changed);
+}
+
+// Strided lines too long for a strip in shared memory: one thread per line
+// walks it run by run (the run's length from db), reading each run twice.
+__global__ void run_min_walk_kernel(int32_t* __restrict__ lab, const int16_t* __restrict__ df,
+                                    const int16_t* __restrict__ db, int n0, int n1, int n2, int axis,
+                                    int32_t* __restrict__ changed) {
   long long line = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (line >= mamri_num_lines(axis, n0, n1, n2)) return;
   long long base, stride;
@@ -369,11 +735,71 @@ extern "C" int mamri_reset_distances(const int8_t* reset, int16_t* df, int16_t* 
   reset_dist_strips_kernel<1><<<blocks, segs * 32, smem1, stream>>>(reset, df, db, cols, len, inner);
   return (int)cudaGetLastError();
 }
+template <int V>
+static int rm_launch_lines(int32_t* lab, const int16_t* df, long long lines, int len,
+                           int32_t* changed, cudaStream_t stream) {
+  const size_t per_warp = (size_t)((len + 32 * V - 1) / (32 * V)) * (32 * V + 2 * V) * sizeof(int32_t);
+  int warps = RM_LINE_WARPS;
+  while (warps > 1 && warps * per_warp > 48 * 1024) warps >>= 1;  // long lines: fewer a block
+  const size_t smem = warps * per_warp;  // one line of 32,766 is 139 KB
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        run_min_lines_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((lines + warps - 1) / warps);
+  run_min_lines_kernel<V><<<blocks, warps * 32, smem, stream>>>(lab, df, lines, len, changed);
+  return (int)cudaGetLastError();
+}
+
+static size_t rm_strip_smem(int v, int len, int segs) {
+  return ((size_t)len + (size_t)((len + 31) / 32) * 2 + 3 * segs) * 32 * v * sizeof(int32_t);
+}
+
+template <int V>
+static int rm_launch_strips(int32_t* lab, const int16_t* df, long long cols, int len,
+                            long long inner, int segs, int32_t* changed, cudaStream_t stream) {
+  const size_t smem = rm_strip_smem(V, len, segs);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        run_min_strips_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((cols + 32 * V - 1) / (32 * V));
+  run_min_strips_kernel<V><<<blocks, segs * 32, smem, stream>>>(lab, df, cols, len, inner, changed);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mamri_run_min(int32_t* lab, const int16_t* df, const int16_t* db, int n0, int n1,
                              int n2, int axis, int32_t* changed, cudaStream_t stream) {
+  const long long outer = axis == 2 ? (long long)n0 * n1 : axis == 1 ? n0 : 1;
+  const int len = axis == 2 ? n2 : axis == 1 ? n1 : n0;
+  const long long inner = axis == 2 ? 1 : axis == 1 ? n2 : (long long)n1 * n2;
+  // V voxels a lane need lines (or columns) in whole groups of V and vector
+  // loads on their natural boundaries; a view may start anywhere
+  const long long unit = inner == 1 ? len : inner;
+  const uintptr_t at = (uintptr_t)lab | ((uintptr_t)df << 1);
+  const int widest = unit % 4 == 0 && at % 16 == 0 ? 4 : unit % 2 == 0 && at % 8 == 0 ? 2 : 1;
+  if (inner == 1) {
+    if (widest == 4) return rm_launch_lines<4>(lab, df, outer, len, changed, stream);
+    if (widest == 2) return rm_launch_lines<2>(lab, df, outer, len, changed, stream);
+    return rm_launch_lines<1>(lab, df, outer, len, changed, stream);
+  }
+  const int nchunks = (len + 31) / 32;
+  const int segs = nchunks < RM_MAX_SEGS ? nchunks : RM_MAX_SEGS;
+  // the widest strip that leaves room for three blocks on an SM, else the
+  // narrowest: it is the one that fits the longest lines
+  int v = widest;
+  while (v > 1 && rm_strip_smem(v, len, segs) > RM_SMEM_SHARE) v >>= 1;
+  const long long cols = outer * inner;
+  if (rm_strip_smem(v, len, segs) <= RM_SMEM_MAX) {
+    if (v == 4) return rm_launch_strips<4>(lab, df, cols, len, inner, segs, changed, stream);
+    if (v == 2) return rm_launch_strips<2>(lab, df, cols, len, inner, segs, changed, stream);
+    return rm_launch_strips<1>(lab, df, cols, len, inner, segs, changed, stream);
+  }
   const long long lines = mamri_num_lines(axis, n0, n1, n2);
-  run_min_kernel<<<mamri_blocks(lines), MAMRI_THREADS, 0, stream>>>(lab, df, db, n0, n1, n2, axis,
-                                                                     changed);
+  run_min_walk_kernel<<<mamri_blocks(lines), MAMRI_THREADS, 0, stream>>>(lab, df, db, n0, n1, n2,
+                                                                          axis, changed);
   return (int)cudaGetLastError();
 }
 

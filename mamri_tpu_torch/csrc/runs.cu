@@ -5,18 +5,19 @@
 //   :816 run_stats_matmul         (`_run_stats_kernel` :783)         -> run_stats (dense)
 //   :893 run_stats_matmul_compact (`_run_stats_compact_kernel` :865) -> run_stats (compact)
 //
-// z_runs: one CUDA block per (8 x-lines x 128 y-lines) block of the padded
-// volume -- the TPU's grid, so `block_counts`, the `cand_ok` certificate and
-// `num_components` mean the same thing. One thread walks one z line and
-// writes its first k maximal runs as (label at the start, z0, len = dbz at
-// the start) into (nxp, k, nyq) tables, nyq = ny padded to 128 (the padding
-// lines are written empty without being read). A run is its component's root
-// run iff its label equals z0*nx*ny + y*nx + (x + x_off): the root is the
-// component's minimum raster index, and a root has no -z neighbour in its
-// component, so it starts a run. The block then picks its cand_k smallest
-// roots: a line's roots ascend with z0, so each thread offers its smallest
-// unpicked root and a block-wide min picks one per round (cand_k rounds).
-// The maximum number of runs in any line goes to one atomicMax.
+// z_runs: the first k maximal runs of every z line as (label at the start,
+// z0, len = dbz at the start) in (nxp, k, nyq) tables, nyq = ny padded to 128
+// (the padding lines are written empty without being read), the cand_k
+// smallest roots and the root count of every (8 x-lines x 128 y-lines) block
+// of the padded volume -- the TPU's grid, so `block_counts`, the `cand_ok`
+// certificate and `num_components` mean the same thing -- and the maximum
+// number of runs in any line (one atomicMax a warp at most). A run is its
+// component's root run iff its label equals z0*nx*ny + y*nx + (x + x_off):
+// the root is the component's minimum raster index, and a root has no -z
+// neighbour in its component, so it starts a run. Two launches: the scan is
+// cut into warp tasks of 32 lines so that it fills the card whatever the
+// number of (8, 128) blocks, and the roots are picked per (8, 128) block from
+// the tables it wrote.
 //
 // run_stats: one thread per run slot; binary search of the label in the
 // ascending roots; atomicAdd of the four features [len, i*len, j*len,
@@ -25,114 +26,194 @@
 // giving repeated roots the row of their first occurrence, as the one-hot
 // product would.
 //
-// What bounds them on the card: z_runs is one read of the labels and the two
-// z distance arrays (each thread walks contiguous memory; runs are skipped
-// in one step from their length) plus the small tables; run_stats reads the
-// tables once and its atomics land on few addresses only for large
-// components, whose runs are spread over many lines.
+// What bounds them on the card: bytes. z_runs' contract moves 8 B a voxel
+// (labels, dfz, dbz) plus the tables; the scan reads dfz alone, coalesced,
+// and fetches labels and dbz only at the starts of the runs it keeps, and
+// the table rows are written 128 B a warp. run_stats reads the tables once
+// and its atomics land on few addresses only for large components, whose
+// runs are spread over many lines.
 
 #include "common.cuh"
 
 #define Z_BLOCK_X 8
 #define Z_BLOCK_Y 128
+#define ZR_SCAN_WARPS 4     // warp tasks (32 lines each) per block of the scan
+#define ZR_LOADS 8          // dfz loads a lane keeps in flight
+#define ZR_RANKS 8          // ranks a lane resolves before it fetches their labels
+#define ZR_PICK_THREADS 1024
+#define ZR_PICK_LOADS 8     // table slots a thread reads at a time
+#define ZR_LIST_CAP 8192    // roots of one block kept in shared memory for the pick
+#define ZR_FULL 0xffffffffu
 
-__global__ void __launch_bounds__(Z_BLOCK_X * Z_BLOCK_Y)
-    z_runs_kernel(const int32_t* __restrict__ lab, const int16_t* __restrict__ dfz,
-                  const int16_t* __restrict__ dbz, int32_t* lab_tab, int32_t* z0_tab,
-                  int32_t* len_tab, int32_t* __restrict__ root_tab, int32_t* __restrict__ max_runs,
-                  int nyp, int nz, int nyq, int k, int cand_k, int nx, int ny, int x_off) {
-  __shared__ int32_t warp_min[32];
-  __shared__ int32_t round_min;
-  __shared__ int32_t block_roots;
-  __shared__ int32_t block_max_runs;
-
-  const int row = blockIdx.x;
-  const int nby = nyq / Z_BLOCK_Y;
-  const int x = (row / nby) * Z_BLOCK_X + threadIdx.x / Z_BLOCK_Y;
-  const int y = (row % nby) * Z_BLOCK_Y + threadIdx.x % Z_BLOCK_Y;
+// Scan: a warp owns 32 lines of neighbouring y at one x. It reads their dfz
+// 8 bytes a lane (128 voxels a warp load), packs "a run starts here"
+// (dfz == 1) into words of 32 voxels (a lane's 4 bits, ORed over 8 lanes) and
+// keeps them in shared memory, [word][line] with a padded row. Then lane j
+// takes line y0 + j: rank after rank it finds its next start with __ffs,
+// fetches that run's label and dbz, and the warp writes the rank's slots of
+// its 32 lines as one row.
+__global__ void __launch_bounds__(ZR_SCAN_WARPS * 32)
+    z_runs_scan_kernel(const int32_t* __restrict__ lab, const int16_t* __restrict__ dfz,
+                       const int16_t* __restrict__ dbz, int32_t* __restrict__ lab_tab,
+                       int32_t* __restrict__ z0_tab, int32_t* __restrict__ len_tab,
+                       int32_t* __restrict__ max_runs, int nxp, int nyp, int nz, int nyq, int k) {
+  extern __shared__ uint32_t zr_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    block_roots = 0;
-    block_max_runs = 0;
+  const int nwords = nz >> 5, steps = nz >> 7, tiles_y = nyq >> 5;
+  const long long task = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (task >= (long long)nxp * tiles_y) return;  // the whole warp; the block never meets
+  const int x = (int)(task / tiles_y), y0 = (int)(task % tiles_y) * 32;
+  uint32_t* masks = zr_smem + (size_t)warp * nwords * 33;
+
+  for (int t0 = 0; t0 < 32 * steps; t0 += ZR_LOADS) {  // t = line * steps + step
+    uint2 w[ZR_LOADS];
+#pragma unroll
+    for (int u = 0; u < ZR_LOADS; ++u) {
+      const int j = (t0 + u) / steps, s = (t0 + u) - j * steps;
+      w[u] = make_uint2(0u, 0u);
+      if (y0 + j < nyp)
+        w[u] = *reinterpret_cast<const uint2*>(dfz + ((long long)x * nyp + y0 + j) * nz + s * 128 +
+                                               4 * lane);
+    }
+#pragma unroll
+    for (int u = 0; u < ZR_LOADS; ++u) {
+      const int j = (t0 + u) / steps, s = (t0 + u) - j * steps;
+      uint32_t bits = ((w[u].x & 0xffffu) == 1u ? 1u : 0u) | ((w[u].x >> 16) == 1u ? 2u : 0u) |
+                      ((w[u].y & 0xffffu) == 1u ? 4u : 0u) | ((w[u].y >> 16) == 1u ? 8u : 0u);
+      bits <<= 4 * (lane & 7);
+      bits |= __shfl_xor_sync(ZR_FULL, bits, 1);
+      bits |= __shfl_xor_sync(ZR_FULL, bits, 2);
+      bits |= __shfl_xor_sync(ZR_FULL, bits, 4);
+      if ((lane & 7) == 0) masks[(s * 4 + (lane >> 3)) * 33 + j] = bits;
+    }
+  }
+  __syncwarp();
+
+  const int y = y0 + lane;
+  int total = 0;
+  for (int wd = 0; wd < nwords; ++wd) total += __popc(masks[wd * 33 + lane]);
+  total = __reduce_max_sync(ZR_FULL, total);
+  if (lane == 0 && total > *(volatile int32_t*)max_runs) atomicMax(max_runs, total);
+
+  const long long base = ((long long)x * nyp + y) * nz;  // read only where the line has a start
+  const long long slot0 = (long long)x * k * nyq + y;    // slot r is slot0 + r*nyq
+  int wd = 0;
+  uint32_t m = masks[lane];
+  for (int r0 = 0; r0 < k; r0 += ZR_RANKS) {
+    int z[ZR_RANKS];
+#pragma unroll
+    for (int u = 0; u < ZR_RANKS; ++u) {
+      while (m == 0u && wd + 1 < nwords) m = masks[(++wd) * 33 + lane];
+      z[u] = -1;
+      if (m) {
+        z[u] = wd * 32 + __ffs(m) - 1;
+        m &= m - 1u;
+      }
+    }
+    int32_t l[ZR_RANKS], ln[ZR_RANKS];
+#pragma unroll
+    for (int u = 0; u < ZR_RANKS; ++u) {
+      l[u] = z[u] >= 0 ? lab[base + z[u]] : MAMRI_BIG;
+      ln[u] = z[u] >= 0 ? (int32_t)dbz[base + z[u]] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < ZR_RANKS; ++u) {
+      if (r0 + u < k) {
+        const long long s = slot0 + (long long)(r0 + u) * nyq;
+        lab_tab[s] = l[u];
+        z0_tab[s] = z[u] >= 0 ? z[u] : 0;
+        len_tab[s] = ln[u];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int32_t zr_block_min(int32_t v, int32_t* warp_min) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_min_sync(ZR_FULL, v);
+  if (lane == 0) warp_min[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = __reduce_min_sync(ZR_FULL, lane < (blockDim.x >> 5) ? warp_min[lane] : MAMRI_BIG);
+    if (lane == 0) warp_min[0] = v;
   }
   __syncthreads();
+  v = warp_min[0];
+  __syncthreads();
+  return v;
+}
 
+// Roots: one block per (8 x, 128 y)-line block reads its slots of the tables
+// (still in L2), gathers the roots into a list in shared memory and counts
+// them. Roots are distinct raster indices, so a root's place among the picks
+// is the number of smaller roots: each thread counts that for its roots and
+// gives up at cand_k. Only a block with more than ZR_LIST_CAP roots picks in
+// cand_k rounds of a block-wide minimum over the tables.
+__global__ void __launch_bounds__(ZR_PICK_THREADS)
+    z_runs_roots_kernel(const int32_t* __restrict__ lab_tab, const int32_t* __restrict__ z0_tab,
+                        int32_t* __restrict__ cands, int32_t* __restrict__ counts,
+                        int32_t* __restrict__ num_roots, int nyq, int k, int cand_k, int nx, int ny,
+                        int x_off) {
+  __shared__ int32_t list[ZR_LIST_CAP];
+  __shared__ int32_t warp_min[32];
+  __shared__ int count;
+  const int row = blockIdx.x, nby = nyq / Z_BLOCK_Y;
+  const int x0 = (row / nby) * Z_BLOCK_X, y0 = (row % nby) * Z_BLOCK_Y;
+  const int slots = Z_BLOCK_X * k * Z_BLOCK_Y;  // slot p = (xx * k + r) * 128 + yy
   const long long nxny = (long long)nx * ny;
-  const long long lin_xy = (long long)y * nx + (x + x_off);  // raster index minus z0*nx*ny
-  const long long slot0 = (long long)x * k * nyq + y;        // slot r is slot0 + r*nyq
-  int runs = 0, roots = 0, head_rank = -1;
-  int32_t head = MAMRI_BIG;  // this line's smallest root not picked yet
-  if (y < nyp) {
-    const long long base = ((long long)x * nyp + y) * nz;
-    int z = 0;
-    while (z < nz) {
-      if (dfz[base + z] != 1) {  // not a run start
-        ++z;
-        continue;
-      }
-      const int len = dbz[base + z];
-      if (runs < k) {
-        const int32_t l = lab[base + z];
-        const long long s = slot0 + (long long)runs * nyq;
-        lab_tab[s] = l;
-        z0_tab[s] = z;
-        len_tab[s] = len;
-        if (l != MAMRI_BIG && (long long)l == z * nxny + lin_xy) {
-          ++roots;
-          if (head == MAMRI_BIG) {
-            head = l;
-            head_rank = runs;
-          }
-        }
-      }
-      ++runs;
-      z += len > 0 ? len : 1;
+  if (threadIdx.x == 0) count = 0;
+  __syncthreads();
+  // the root at slot p of the block, or BIG
+  auto root_at = [&](int p) -> int32_t {
+    const int yy = p & (Z_BLOCK_Y - 1), xr = p / Z_BLOCK_Y;  // xr = xx * k + r
+    const int x = x0 + xr / k, y = y0 + yy;
+    const long long s = ((long long)x0 * k + xr) * nyq + y;
+    const int32_t l = lab_tab[s];
+    if (l == MAMRI_BIG) return MAMRI_BIG;
+    return (long long)l == z0_tab[s] * nxny + (long long)y * nx + (x + x_off) ? l : MAMRI_BIG;
+  };
+  for (int p0 = threadIdx.x; p0 < slots; p0 += ZR_PICK_LOADS * blockDim.x) {
+    int32_t l[ZR_PICK_LOADS];
+#pragma unroll
+    for (int u = 0; u < ZR_PICK_LOADS; ++u) {
+      const int p = p0 + u * blockDim.x;
+      l[u] = p < slots ? root_at(p) : MAMRI_BIG;
     }
-  }
-  for (int r = runs; r < k; ++r) {
-    const long long s = slot0 + (long long)r * nyq;
-    lab_tab[s] = MAMRI_BIG;
-    z0_tab[s] = 0;
-    len_tab[s] = 0;
-  }
-  if (roots) atomicAdd(&block_roots, roots);
-  atomicMax(&block_max_runs, runs);
-
-  int32_t* out = root_tab + (long long)row * (cand_k + 1);
-  const int filled = runs < k ? runs : k;
-  for (int t = 0; t < cand_k; ++t) {
-    int32_t v = __reduce_min_sync(0xffffffffu, head);
-    if (lane == 0) warp_min[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      v = __reduce_min_sync(0xffffffffu, warp_min[lane]);
-      if (lane == 0) round_min = v;
-    }
-    __syncthreads();
-    const int32_t m = round_min;
-    if (threadIdx.x == 0) out[t] = m;
-    if (m == MAMRI_BIG) {  // uniform across the block: every later pick is empty too
-      if (threadIdx.x == 0)
-        for (int u = t + 1; u < cand_k; ++u) out[u] = MAMRI_BIG;
-      break;
-    }
-    if (head == m) {  // roots are unique raster indices: exactly one thread advances
-      head = MAMRI_BIG;
-      for (int r = head_rank + 1; r < filled; ++r) {
-        const long long s = slot0 + (long long)r * nyq;
-        const int32_t l = lab_tab[s];
-        if (l != MAMRI_BIG && (long long)l == z0_tab[s] * nxny + lin_xy) {
-          head = l;
-          head_rank = r;
-          break;
-        }
+#pragma unroll
+    for (int u = 0; u < ZR_PICK_LOADS; ++u) {
+      if (l[u] != MAMRI_BIG) {
+        const int at = atomicAdd(&count, 1);
+        if (at < ZR_LIST_CAP) list[at] = l[u];
       }
     }
   }
   __syncthreads();
+  const int n = count;
+  int32_t* out = cands + (long long)row * cand_k;
   if (threadIdx.x == 0) {
-    out[cand_k] = block_roots;
-    atomicMax(max_runs, block_max_runs);
+    counts[row] = n;
+    if (n) atomicAdd(num_roots, n);
+  }
+  for (int t = (n < cand_k ? n : cand_k) + threadIdx.x; t < cand_k; t += blockDim.x) out[t] = MAMRI_BIG;
+  if (n <= ZR_LIST_CAP) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int32_t v = list[i];
+      int rank = 0;
+      for (int j = 0; j < n && rank < cand_k; ++j) rank += list[j] < v;
+      if (rank < cand_k) out[rank] = v;
+    }
+    return;
+  }
+  long long prev = -1;  // the last pick
+  for (int t = 0; t < cand_k; ++t) {  // a round with no root left picks BIG
+    int32_t best = MAMRI_BIG;
+    for (int p = threadIdx.x; p < slots; p += blockDim.x) {
+      const int32_t l = root_at(p);
+      if (l > prev && l < best) best = l;
+    }
+    best = zr_block_min(best, warp_min);
+    if (threadIdx.x == 0) out[t] = best;
+    prev = best;
   }
 }
 
@@ -178,14 +259,32 @@ __global__ void run_stats_finalize_kernel(const unsigned long long* __restrict__
   for (int c = 0; c < 4; ++c) out[4 * r + c] = (float)(long long)acc[4LL * first + c];
 }
 
+// root_tab: the candidates of every (8, 128) block, cand_k each, then the
+// blocks' root counts. totals: [max runs in a line, number of roots], zero on
+// entry.
 extern "C" int mamri_z_runs(const int32_t* lab, const int16_t* dfz, const int16_t* dbz,
                             int32_t* lab_tab, int32_t* z0_tab, int32_t* len_tab, int32_t* root_tab,
-                            int32_t* max_runs, int nxp, int nyp, int nz, int nyq, int k,
+                            int32_t* totals, int nxp, int nyp, int nz, int nyq, int k,
                             int cand_k, int nx, int ny, int x_off, cudaStream_t stream) {
-  const unsigned int blocks = (unsigned int)((nxp / Z_BLOCK_X) * (nyq / Z_BLOCK_Y));
-  z_runs_kernel<<<blocks, Z_BLOCK_X * Z_BLOCK_Y, 0, stream>>>(lab, dfz, dbz, lab_tab, z0_tab,
-                                                              len_tab, root_tab, max_runs, nyp, nz,
-                                                              nyq, k, cand_k, nx, ny, x_off);
+  if ((uintptr_t)dfz % 8 != 0) return (int)cudaErrorMisalignedAddress;  // 8-byte loads
+  const size_t per_warp = (size_t)(nz / 32) * 33 * sizeof(uint32_t);
+  int warps = ZR_SCAN_WARPS;
+  while (warps > 1 && warps * per_warp > 48 * 1024) warps >>= 1;  // long lines: fewer a block
+  const size_t smem = warps * per_warp;  // at most 135 KB: nz < 32767
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        z_runs_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long tasks = (long long)nxp * (nyq / 32);
+  z_runs_scan_kernel<<<(unsigned)((tasks + warps - 1) / warps), warps * 32, smem, stream>>>(
+      lab, dfz, dbz, lab_tab, z0_tab, len_tab, totals, nxp, nyp, nz, nyq, k);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((nxp / Z_BLOCK_X) * (nyq / Z_BLOCK_Y));
+  z_runs_roots_kernel<<<blocks, ZR_PICK_THREADS, 0, stream>>>(
+      lab_tab, z0_tab, root_tab, root_tab + (long long)blocks * cand_k, totals + 1, nyq, k, cand_k,
+      nx, ny, x_off);
   return (int)cudaGetLastError();
 }
 

@@ -270,17 +270,15 @@ def z_runs(labels, dfz, dbz, nx: int, ny: int, k: int = 16, cand_k: int = 8, x_o
     z0_t = torch.empty_like(lab_t)
     len_t = torch.empty_like(lab_t)
     nblocks = (nxp // 8) * (nyq // 128)
-    root_tab = torch.empty((nblocks, cand_k + 1), dtype=torch.int32, device=dev)
-    max_runs = torch.zeros((), dtype=torch.int32, device=dev)
+    root_tab = torch.empty(nblocks * (cand_k + 1), dtype=torch.int32, device=dev)  # candidates, then counts
+    totals = torch.zeros(2, dtype=torch.int32, device=dev)  # max runs per line, number of roots
     _launch(
         "z_runs", "mamri_z_runs",
         labels.data_ptr(), dfz.data_ptr(), dbz.data_ptr(), lab_t.data_ptr(), z0_t.data_ptr(),
-        len_t.data_ptr(), root_tab.data_ptr(), max_runs.data_ptr(),
+        len_t.data_ptr(), root_tab.data_ptr(), totals.data_ptr(),
         nxp, nyp, nz, nyq, k, cand_k, nx, ny, x_off,
     )
-    counts = root_tab[:, cand_k]
-    return (lab_t, z0_t, len_t, root_tab[:, :cand_k].reshape(-1), counts,
-            counts.sum(dtype=torch.int32), max_runs)
+    return (lab_t, z0_t, len_t, root_tab[:nblocks * cand_k], root_tab[nblocks * cand_k:], totals[1], totals[0])
 
 
 def z_runs_plain(labels, dfz, dbz, nx: int, ny: int, k: int = 16, cand_k: int = 8, x_off: int = 0):

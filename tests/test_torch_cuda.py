@@ -169,6 +169,94 @@ def test_reset_distances_of_an_unaligned_view(cuda, shape, offset):
         _same(G.reset_distances(reset, axis), G.reset_distances_plain(reset, axis))
 
 
+def _run_lines(shape, seed):
+    """(labels, reset) whose lines cycle through: one run, alternating
+    1-voxel runs, background, sparse and dense noise; labels are random, so
+    a run's minimum falls on its first, its last or an interior voxel."""
+    rng = np.random.default_rng(seed)
+    reset = _reset_lines(shape, seed)
+    reset[0, 0] = 0  # one run over the whole line
+    reset[-1, -1] = 0
+    reset[-1, -1, 1::2] = 1  # 1-voxel runs
+    lab = rng.integers(0, 1 << 20, shape).astype(np.int32)
+    lab[reset != 0] = G.BIG
+    return lab, reset
+
+
+def _run_min_equals_twin(lab, reset):
+    for axis in (0, 1, 2):
+        df, db = G.reset_distances_plain(reset, axis)
+        a, fa, b, fb = lab.clone(), G.new_flag(lab.device), lab.clone(), G.new_flag(lab.device)
+        G.run_min(a, df, db, axis, fa)
+        G.run_min_plain(b, df, db, axis, fb)
+        _same((a, fa), (b, fb))
+        before, again = a.clone(), G.new_flag(lab.device)
+        G.run_min(a, df, db, axis, again)  # already minimal: nothing changes, the flag stays down
+        _same((a, again), (before, G.new_flag(lab.device)))
+
+
+@pytest.mark.parametrize(
+    "shape",
+    WORD_EDGE_SHAPES
+    + [(8, 8, 384), (16, 16, 256), (256, 8, 128), (8, 512, 8)]  # 4 and 2 labels a lane, one and two chunks a warp
+    + [(4, 3, n) for n in (1, 31, 32, 33, 127, 129, 255, 257, 4097)]  # z lines around a warp's chunk, 1 label a lane
+    + [(4, 6, n) for n in (30, 34, 130, 1030)]  # 2 labels a lane
+    + [(33, 5, 8), (257, 6, 4), (3, 140, 12), (545, 2, 6)]  # strided lines across segments, each lane width
+    + [(3000, 2, 4), (2, 4097, 2), (12800, 1, 3)],  # strided lines over the shared-memory strip limit
+)
+def test_run_min_equals_twin(cuda, shape):
+    lab, reset = _run_lines(shape, seed=sum(shape))
+    _run_min_equals_twin(torch.as_tensor(lab).to(cuda), torch.as_tensor(reset).to(cuda))
+    # no background at all: every line is one run along every axis
+    whole = np.random.default_rng(1).integers(0, 1 << 20, shape).astype(np.int32)
+    _run_min_equals_twin(torch.as_tensor(whole).to(cuda), torch.zeros(shape, dtype=torch.int8, device=cuda))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(4, 4, 8), (8, 8, 384)])
+def test_run_min_of_an_unaligned_view(cuda, shape, offset):
+    """Labels that start off a 16-byte boundary take the narrower lanes."""
+    lab_np, reset = _run_lines(shape, seed=offset)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 4, dtype=torch.int32, device=cuda)
+    lab = buf[offset:offset + n].view(shape)
+    lab.copy_(torch.as_tensor(lab_np))
+    assert lab.data_ptr() % 16 == 4 * offset
+    _run_min_equals_twin(lab, torch.as_tensor(reset).to(cuda))
+
+
+@pytest.mark.parametrize(
+    "shape,k,cand_k,x_off,converge",
+    [
+        ((8, 8, 128), 8, 8, 0, True),
+        ((16, 16, 384), 4, 3, 5, True),
+        ((16, 256, 128), 2, 2, 3, True),  # two y blocks, two x blocks
+        ((16, 256, 128), 8, 32, 0, False),  # raw labels: every run is a root
+        ((8, 136, 256), 4, 16, 0, False),  # y padded from 136 to 256
+        ((8, 128, 128), 72, 16, 0, False),  # more roots in a block than its shared-memory list holds
+        ((8, 128, 128), 72, 9000, 0, False),
+    ],
+)
+def test_z_runs_equals_twin(cuda, shape, k, cand_k, x_off, converge):
+    rng = np.random.default_rng(sum(shape) + k)
+    nx, ny, _ = shape
+    mask = rng.random(shape) < (0.3 if converge else 0.5)
+    mask[0, 0] = True  # a run from z = 0 to nz - 1
+    mask[1, 1, :3] = True
+    mask[1, 1, -3:] = True
+    i, j, kk = np.indices(shape)
+    gx = nx + x_off
+    lab = torch.as_tensor(np.where(mask, kk * gx * ny + j * gx + i + x_off, G.BIG).astype(np.int32)).to(cuda)
+    dists = G.compute_reset_distances(torch.as_tensor(~mask).to(torch.int8).to(cuda))
+    if converge:
+        lab, _ = S._ccl_sweeps_from_dists(lab, dists, max_sweeps=64)
+    args = (lab, dists[4], dists[5], gx, ny, k, cand_k, x_off)
+    G.reset_launch_counts()
+    got = G.z_runs(*args)
+    assert G.LAUNCHES["z_runs"] == 1
+    _same(got, G.z_runs_plain(*args))
+
+
 def test_stats_large_sums_and_many_roots(cuda):
     """A body whose coordinate sums pass 2^24 beside 960 single-voxel roots."""
     shape = (160, 160, 96)

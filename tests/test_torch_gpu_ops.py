@@ -161,6 +161,55 @@ def test_full_sweep_converges_to_the_jnp_fixed_point():
     _eq(lab, ref)
 
 
+# run lengths on both sides of a warp's 32 rows, of a 128-voxel chunk and of
+# the segments a block splits a line into
+RUN_LENGTHS = (31, 32, 33, 255, 257, 384)
+LINE_SHAPES = {0: (384, 8, 128), 1: (8, 384, 128), 2: (8, 8, 384)}
+
+
+def _planted_lines(axis, pattern):
+    """(labels, reset) over lines of 384 along `axis`. `spans`: one run per
+    line, its length from RUN_LENGTHS, its offset moving from line to line,
+    its minimum planted at the first, the last or an interior voxel.
+    `one-run`: the whole line is one run. `alternating`: 1-voxel runs."""
+    shape = LINE_SHAPES[axis]
+    rng = np.random.default_rng(axis)
+    lines = int(np.prod(shape)) // 384
+    fg = np.zeros((lines, 384), bool)
+    lab = rng.integers(1 << 20, 1 << 21, (lines, 384)).astype(np.int32)
+    for n in range(lines):
+        if pattern == "alternating":
+            fg[n, n % 2::2] = True
+            continue
+        length = 384 if pattern == "one-run" else RUN_LENGTHS[n % 6]
+        start = (n // 6 * 7) % (384 - length + 1)
+        fg[n, start:start + length] = True
+        lab[n, start + (0, length - 1, length // 3)[(n // 6) % 3]] = n
+    lab[~fg] = BIG
+    to_volume = lambda a: np.ascontiguousarray(np.moveaxis(a.reshape(*np.delete(shape, axis), 384), -1, axis))
+    return to_volume(lab), to_volume(~fg).astype(np.int8)
+
+
+@pytest.mark.parametrize("pattern", ["spans", "one-run", "alternating"])
+@pytest.mark.parametrize("axis", [0, 1, 2], ids=["x", "y", "z"])
+def test_run_min_lines_match_pallas(axis, pattern):
+    lab, reset = _planted_lines(axis, pattern)
+    jd = P.compute_reset_distances(jnp.asarray(reset), interpret=True)
+    td = G.compute_reset_distances(_t(reset))
+    if axis == 0:
+        want, want_chg = P.ccl_half_sweep_x(jnp.asarray(lab), jd, interpret=True)
+        got, chg = G.ccl_half_sweep_x(_t(lab.copy()), td)  # in place: not on jax's input
+    else:
+        want, want_chg = P.ccl_half_sweep_yz(jnp.asarray(lab), jd, interpret=True)
+        got, chg = G.ccl_half_sweep_yz(_t(lab.copy()), td)
+    _eq(got, want)
+    assert int(chg[0]) == int(want_chg) == (pattern != "alternating")
+    if pattern != "alternating" and axis == 0:  # (the yz pair also joins runs of neighbouring lines)
+        lines = np.moveaxis(got.numpy(), 0, -1).reshape(-1, 384)
+        fg = lines != BIG
+        assert all((lines[n][fg[n]] == n).all() for n in range(len(lines)))
+
+
 # --------------------------------------------------------------------- z_runs
 def _converged(mask):
     td = G.compute_reset_distances(_t((~mask).astype(np.int8)))
@@ -203,6 +252,52 @@ def test_z_runs_unconverged_labels_match_pallas():
     )
     for g, w in zip(G.z_runs(_t(lab0), td[4], td[5], TILE[0], TILE[1], k=4, cand_k=16), want):
         _eq(g, w)
+
+
+def _z_edge_mask(case):
+    mask = np.zeros(TILE, bool)
+    if case == "over-k":  # 1-voxel runs: 64 a line
+        mask[2:6, 3:9, ::2] = True
+    elif case == "touching-ends":  # runs from z = 0, runs to nz - 1, one over the whole line
+        mask[1, 2, :5] = True
+        mask[1, 4, -7:] = True
+        mask[3, 3, :] = True
+        mask[9, 9, :1] = True
+        mask[9, 11, -1:] = True
+    else:  # lone voxels, each its own root: 16 lines of one, one line of four
+        mask[::4, ::4, 60] = True
+        mask[5, 5, ::32] = True
+    return mask
+
+
+@pytest.mark.parametrize(
+    "case,k,cand_k,x_off",
+    [("over-k", 4, 8, 0), ("over-k", 8, 2, 3), ("touching-ends", 4, 8, 0), ("touching-ends", 2, 4, 7),
+     ("over-cand-k", 8, 4, 0), ("over-cand-k", 2, 16, 5)],
+)
+def test_z_runs_edge_cases_match_pallas(case, k, cand_k, x_off):
+    mask = _z_edge_mask(case)
+    gx = TILE[0] + x_off  # the block's labels in a volume that is x_off wider
+    i, j, kk = np.indices(TILE)
+    lab0 = np.where(mask, kk * gx * TILE[1] + j * gx + i + x_off, BIG).astype(np.int32)
+    td = G.compute_reset_distances(_t((~mask).astype(np.int8)))
+    lab, _ = tseg._ccl_sweeps_from_dists(_t(lab0), td, max_sweeps=8)
+    want = P.extract_z_runs(
+        jnp.asarray(lab.numpy()), jnp.asarray(td[4].numpy()), jnp.asarray(td[5].numpy()),
+        gx, TILE[1], k=k, cand_k=cand_k, interpret=True, x_off=x_off,
+    )
+    got = G.z_runs(lab, td[4], td[5], gx, TILE[1], k=k, cand_k=cand_k, x_off=x_off)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    num_components, max_runs = int(got[5]), int(got[6])
+    if case == "over-k":
+        assert max_runs == 64 > k
+    elif case == "touching-ends":
+        assert max_runs == 1 and num_components == 5
+    else:
+        assert num_components == 16 + min(4, k)  # line (5, 5) has 4 runs
+        assert int(got[4][0]) == 8 + min(4, k)  # the first of the two x blocks
+        assert (int(got[4][0]) > cand_k) == (cand_k == 4)
 
 
 # ------------------------------------------------------------------ run_stats
