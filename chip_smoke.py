@@ -19,6 +19,15 @@
    the host enqueues the timed call, so no host time lies between the
    events. Times are kept per variant of a kernel
    (`reset_distances[z]`, `run_min[y.2]`, `root_candidates[k16]`, ...).
+   The four stats wrappers (two kernels) are also held against their twins at 4096 roots
+   (the escalated size, where their tables take most of a block's shared
+   memory) and on a 512x512x192 volume that is one component (every
+   coordinate sum above 2^32, every update on one row), and one profiled
+   call of each stats wrapper gives the device time of every launch behind
+   it. An empty kernel, launched once, twice and three times in a row
+   behind the same flush and spin, gives the launch floor
+   (`launch_floor_ms`): the least a wrapper of that many dependent launches
+   can take, whatever its bytes.
    Then `segment_volume` alone on the device-resident scans, both
    branches at 256^3 and 512x512x192: one warm-up, p50 of 5 (host clock,
    each call ends in a synchronize), and its device time (CUDA events
@@ -41,7 +50,8 @@ before it and read just after it; every kernel of a path must have launched
 in it. The last two lines are the kernels' JSON and the result JSON; any
 failure raises and exits non-zero. A kernel's JSON entry gives its slowest
 variant at 256^3 (`ms`, `plain_ms`, `bound_ms` of that variant) and every
-variant's times in `ms_by_variant`. Without CUDA it exits 1 and prints no
+variant's times in `ms_by_variant`; the kernels' JSON also carries
+`launch_floor_ms`. Without CUDA it exits 1 and prints no
 result.
 """
 
@@ -131,6 +141,46 @@ def med_ms(fn, make_args, reps=REPS, spin=SPIN_CYCLES):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def launch_floor(card):
+    """{"1": ms, "2": ms, "3": ms}: an empty kernel launched once, twice and
+    three times in a row on one stream, timed as every kernel is."""
+    import torch
+    from mamri_tpu_torch import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def noop(launches):
+        err = lib.mamri_noop(launches, stream)
+        if err != 0:
+            raise RuntimeError(f"mamri_noop: CUDA error {err}")
+
+    floor = {str(k): med_ms(noop, lambda: (k,)) for k in (1, 2, 3)}
+    print(f"launch_floor_ms={json.dumps(floor)} ({card})")
+    return floor
+
+
+def launch_split(fn, make_args):
+    """[(kernel or memset name, device microseconds), ...] of one call of
+    fn(*make_args()) with the L2 flushed, in launch order, from one profiled
+    call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*make_args())  # warm-up
+    args = make_args()
+    flush_l2()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    parts = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not parts:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return [(name.split("(")[0], us) for _, name, us in parts]  # a kernel's name without its signature
 
 
 # ------------------------------------------------------------------ scenes
@@ -263,9 +313,12 @@ def compare_kernels(data_np, label, card, failures, timings):
         print(f"kernel {label} {tag}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B{contract}) ({card})")
 
-    def both(name, fn, plain, make_args, nbytes, nops, variant=None):
+    def both(name, fn, plain, make_args, nbytes, nops, variant=None, split=False):
         got, want = fn(*make_args()), plain(*make_args())
         record(name, got, want, fn, plain, make_args, nbytes, nops, variant)
+        if split:
+            shown = ", ".join(f"{kernel} {us:.1f}" for kernel, us in launch_split(fn, make_args))
+            print(f"launches {label} {name}{f'[{variant}]' if variant else ''}, device us each: {shown}")
         return got
 
     lo, hi = 65.0, 65535.0
@@ -314,11 +367,11 @@ def compare_kernels(data_np, label, card, failures, timings):
     r = roots.numel()
     per_hit = int(np.ceil(np.log2(r))) + 10
     both("run_stats", g.run_stats, g.run_stats_plain, lambda: (run_lab, run_len, run_z0, roots),
-         12 * m + 20 * r, 2 * m + runs * per_hit)
+         12 * m + 20 * r, 2 * m + runs * per_hit, split=True)
     cols = compact_runs(run_lab, run_len, run_z0, 32768)[:5]
     cap = cols[0].numel()
     both("run_stats_compact", g.run_stats_compact, g.run_stats_compact_plain, lambda: (*cols, roots),
-         20 * cap + 20 * r, 2 * cap + runs * per_hit)
+         20 * cap + 20 * r, 2 * cap + runs * per_hit, split=True)
 
     # kernel 12 along z, y, x, on the lines ccl_sweep_pallas hands it, then
     # the whole sweep against the composition of its twins
@@ -342,11 +395,70 @@ def compare_kernels(data_np, label, card, failures, timings):
     flat = lab_c.reshape(-1)
     hits = int(torch.isin(flat, roots[roots != g.BIG]).sum())
     both("component_stats_xyz", g.component_stats_xyz, g.component_stats_xyz_plain,
-         lambda: (flat, roots, nx, ny, nz), 4 * n + 20 * r, 2 * n + hits * per_hit)
+         lambda: (flat, roots, nx, ny, nz), 4 * n + 20 * r, 2 * n + hits * per_hit, split=True)
     raster = lab_c.permute(2, 1, 0).contiguous().reshape(-1)
     both("component_stats_raster", g.component_stats_raster, g.component_stats_raster_plain,
-         lambda: (raster, roots, nx, ny), 4 * n + 20 * r, 2 * n + hits * per_hit)
+         lambda: (raster, roots, nx, ny), 4 * n + 20 * r, 2 * n + hits * per_hit, split=True)
+
+    # the escalated table size: the same roots padded to 4096, as segmentation pads them
+    many = torch.cat([roots, torch.full((4096 - r,), g.BIG, dtype=torch.int32, device=dev)])
+    per_hit = 12 + 10
+    both("run_stats", g.run_stats, g.run_stats_plain, lambda: (run_lab, run_len, run_z0, many),
+         12 * m + 20 * 4096, 2 * m + runs * per_hit, "R4096", split=True)
+    both("run_stats_compact", g.run_stats_compact, g.run_stats_compact_plain, lambda: (*cols, many),
+         20 * cap + 20 * 4096, 2 * cap + runs * per_hit, "R4096")
+    both("component_stats_xyz", g.component_stats_xyz, g.component_stats_xyz_plain,
+         lambda: (flat, many, nx, ny, nz), 4 * n + 20 * 4096, 2 * n + hits * per_hit, "R4096", split=True)
+    both("component_stats_raster", g.component_stats_raster, g.component_stats_raster_plain,
+         lambda: (raster, many, nx, ny), 4 * n + 20 * 4096, 2 * n + hits * per_hit, "R4096")
     return errs
+
+
+def compare_one_component(shape, card, failures, timings):
+    """The four stats wrappers against their twins on a volume that is one
+    foreground component (label 0, its root's raster index): every voxel and
+    every run updates one row, and every coordinate sum passes 2^32. The run
+    tables come from `z_runs` over the padded volume."""
+    import torch
+    from mamri_tpu_torch.perception import gpu_ops as g
+    from mamri_tpu_torch.perception.segmentation import _pad_for_kernels, compact_runs
+
+    dev = torch.device("cuda")
+    nx, ny, nz = shape
+    n = nx * ny * nz
+    label = f"{nx}x{ny}x{nz} one component"
+    lab = torch.zeros(shape, dtype=torch.int32, device=dev)
+    roots = torch.tensor([0] + [g.BIG] * 127, dtype=torch.int32, device=dev)
+    padded, reset = _pad_for_kernels(lab, torch.zeros(shape, dtype=torch.int8, device=dev))
+    dfz, dbz = g.reset_distances(reset, 2)
+    k = 8
+    run_lab, run_z0, run_len = g.z_runs(padded, dfz, dbz, nx, ny, k, 8)[:3]
+    *cols, n_runs = compact_runs(run_lab, run_len, run_z0, nx * ny)
+    if int(n_runs) != nx * ny:
+        raise AssertionError(f"{label}: expected one run in each of the {nx * ny} z lines, got {int(n_runs)}")
+    flat = lab.reshape(-1)
+    m, cap = run_lab.numel(), cols[0].numel()
+    cases = (
+        ("run_stats", g.run_stats, g.run_stats_plain, (run_lab, run_len, run_z0, roots), 12 * m, 2 * m + 17 * nx * ny),
+        ("run_stats_compact", g.run_stats_compact, g.run_stats_compact_plain, (*cols, roots), 20 * cap, 19 * cap),
+        ("component_stats_xyz", g.component_stats_xyz, g.component_stats_xyz_plain, (flat, roots, nx, ny, nz),
+         4 * n, 19 * n),
+        ("component_stats_raster", g.component_stats_raster, g.component_stats_raster_plain, (flat, roots, nx, ny),
+         4 * n, 19 * n),
+    )
+    for name, fn, plain, args, nbytes, nops in cases:
+        got, want = fn(*args), plain(*args)
+        err = float((got.double() - want.double()).abs().max())
+        if err != 0.0:
+            failures.append(f"{label} {name}: max |kernel - twin| = {err}")
+        if not float(got[0, 1:].min()) > 2.0**32:
+            failures.append(f"{label} {name}: expected every coordinate sum above 2^32, got {got[0].tolist()}")
+        kernel_ms, plain_ms = med_ms(fn, lambda: args), med_ms(plain, lambda: args)
+        bound_ms, bound_by = bound(nbytes + 20 * 128, nops)
+        timings.setdefault(label, {}).setdefault(name, {})[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) ({card})")
+
 
 
 def time_segmentation(vol, label, params, card):
@@ -463,6 +575,7 @@ def main() -> int:
     from mamri_tpu_torch.perception.segmentation import SegmentationParams
 
     # ---- phase 1: card, versions, build
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
@@ -486,10 +599,13 @@ def main() -> int:
         body_center_ras=[0.0, 8.0, -6.0], body_radii_mm=[20.0, 14.0, 25.0], noise_sigma=20.0, seed=5,
     )
     failures, timings, errs = [], {}, {}
+    floor = launch_floor(card)
     for label, vol in (("256^3", vol256), ("80^3", vol80), ("512x512x192", vol512)):
         for name, e in compare_kernels(vol.data, label, card, failures, timings).items():
             errs[name] = max(errs.get(name, 0.0), e)
         torch.cuda.empty_cache()
+    compare_one_component((512, 512, 192), card, failures, timings)
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernels disagree with their twins:\n" + "\n".join(failures))
     fused = SegmentationParams(max_sweeps=2, passes=3, max_roots=128)  # the engine's defaults
@@ -565,7 +681,8 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         variants = main_t[name]
-        ms, plain_ms, bound_ms, bound_by = max(variants.values(), key=lambda v: v[0])
+        # the slowest variant at the size the main path gives the kernel (not the escalated table)
+        ms, plain_ms, bound_ms, bound_by = max((t for v, t in variants.items() if v != "R4096"), key=lambda t: t[0])
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -582,11 +699,12 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
     }))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", file=sys.stderr)
     return 0
 
 

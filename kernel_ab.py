@@ -8,7 +8,9 @@ kernels and runs this checkout's chip_smoke.py phase 2 on it at 256^3 and
 512x512x192: every kernel of chip_smoke.KERNELS held against its twin and
 timed at chip_smoke's variant keys (`reset_distances[z]`, `run_min[y.2]`,
 ...; L2 flushed, median of chip_smoke.REPS), then `segment_volume` on both
-branches (host-clock p50 and device time). DIR must define every wrapper chip_smoke calls (true of the
+branches (host-clock p50 and device time), after the launch floor (an empty
+kernel once, twice and three times in a row) where DIR's library has the
+empty kernel. DIR must define every wrapper chip_smoke calls (true of the
 package since all its kernels were ported). The last line is one JSON
 object of the times. To compare two commits on one card, unpack the other
 into a git-ignored directory (`git archive`) and run both in one call:
@@ -51,7 +53,8 @@ def main() -> int:
     if not gpu_ops.__file__.startswith(root):
         raise AssertionError(f"imported {gpu_ops.__file__}, not the package under {root}")
     card = cs.card_line()
-    _build.library()
+    # a checkout from before the launch floor has no empty kernel to time
+    floor = cs.launch_floor(card) if hasattr(_build.library(), "mamri_noop") else None
     model = load_robot_model(device="cpu")
     failures, timings, times = [], {}, {}
     branches = {"fused": SegmentationParams(max_sweeps=2, passes=3, max_roots=128),  # the engine's defaults
@@ -69,7 +72,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernels disagree with their twins:\n" + "\n".join(failures))
-    print(json.dumps({"root": root, "card": card, "ms": times}))
+    print(json.dumps({"root": root, "card": card, "launch_floor_ms": floor, "ms": times}))
     return 0
 
 

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "mamri_run_stats": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P, _I, _P, _P],
     "mamri_scan_lines": [_P, _P, _P, ctypes.c_longlong, _I],
     "mamri_root_candidates": [_P, _P, _I, _I, _I, _I, _I, _I],
-    "mamri_component_stats": [_P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "mamri_component_stats": [_P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P],
+    "mamri_noop": [_I],
 }
 
 # what the last build in this process took and printed (read by chip_smoke.py)

@@ -89,8 +89,19 @@ class RobotModel:
         return self.specs[self.link_index(name)]
 
 
-def load_robot_model(config_path: Optional[str] = None, device="cpu") -> RobotModel:
-    """Load the arm definition from mamri_tpu's JSON schema."""
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"robot model on {device}: torch.cuda.is_available() is False (pass device='cpu' for the CPU)"
+        )
+    return device
+
+
+def load_robot_model(config_path: Optional[str] = None, device="cuda") -> RobotModel:
+    """Load the arm definition from mamri_tpu's JSON schema onto `device`
+    (the card unless the caller asks for the CPU; raises without one)."""
+    device = _resolve_device(device)
     path = config_path or default_config_path()
     with open(path, "r") as f:
         cfg = json.load(f)
@@ -155,13 +166,16 @@ def _build_robot_model(cfg: Dict[str, Any], device) -> RobotModel:
 
 
 def robot_model_from_numpy(
-    fixed_offsets, limits_rad, steps_per_rev, marker_local, needle_tip, needle_axis, specs, device="cpu"
+    fixed_offsets, limits_rad, steps_per_rev, marker_local, needle_tip, needle_axis, specs, device="cuda"
 ) -> RobotModel:
     """Build a RobotModel from numpy arrays and LinkSpec-like objects.
 
     This is how parameters cross over from another implementation of the
     same model (e.g. the JAX package's RobotModel, via `np.asarray` of its
-    arrays and its LinkSpecs), so two packages can be held to one model."""
+    arrays and its LinkSpecs), so two packages can be held to one model.
+    The tensors land on `device`: the card unless the caller asks for the
+    CPU, and an error where there is no card."""
+    device = _resolve_device(device)
     fields = [f.name for f in dataclasses.fields(LinkSpec)]
     port_specs = tuple(LinkSpec(**{k: getattr(s, k) for k in fields}) for s in specs)
 

@@ -12,6 +12,33 @@ static inline unsigned int mamri_blocks(long long n) {
   return (unsigned int)((n + MAMRI_THREADS - 1) / MAMRI_THREADS);
 }
 
+// First position in the ascending a[0..n) whose value is not below v (n where
+// every value is): the row of a label among sorted roots.
+__device__ __forceinline__ int mamri_lower_bound(const int32_t* __restrict__ a, int n, int32_t v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The block that finishes last, for a grid whose blocks add to global
+// accumulators and whose last one reads them all: every thread fences its
+// writes, then one thread takes a ticket from a counter that was zero before
+// the launch. True in every thread of the one block that drew the last
+// ticket; that block then reads the accumulators past L1 (__ldcg).
+__device__ __forceinline__ bool mamri_last_block(unsigned int* ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
 // Geometry of one line along `axis` of a C-contiguous (n0, n1, n2) volume:
 // its first element, the stride between neighbours and its length. Lines are
 // numbered so that neighbouring line ids sit at neighbouring addresses

@@ -19,19 +19,22 @@
 // number of (8, 128) blocks, and the roots are picked per (8, 128) block from
 // the tables it wrote.
 //
-// run_stats: one thread per run slot; binary search of the label in the
-// ascending roots; atomicAdd of the four features [len, i*len, j*len,
-// z0*len + len*(len-1)/2] in int64, so every sum is exact (the TPU's f32
-// one-hot matmul is exact only below 2^24). A last pass writes f32 (R, 4),
-// giving repeated roots the row of their first occurrence, as the one-hot
-// product would.
+// run_stats: every run adds the four features [len, i*len, j*len,
+// z0*len + len*(len-1)/2] to the row its label has among the ascending roots,
+// in int64, so every sum is exact (the TPU's f32 one-hot matmul is exact only
+// below 2^24). One kernel behind a memset: blocks sum in shared memory, and
+// the one that finishes last writes f32 (R, 4), giving repeated roots the row
+// of their first occurrence, as the one-hot product would.
 //
 // What bounds them on the card: bytes. z_runs' contract moves 8 B a voxel
 // (labels, dfz, dbz) plus the tables; the scan reads dfz alone, coalesced,
 // and fetches labels and dbz only at the starts of the runs it keeps, and
-// the table rows are written 128 B a warp. run_stats reads the tables once
-// and its atomics land on few addresses only for large components, whose
-// runs are spread over many lines.
+// the table rows are written 128 B a warp. run_stats reads the lengths once,
+// 16 bytes a thread, and the rest of a slot only where a run stands (most
+// slots are empty); at a few MB its time is its launches and the chain of
+// dependent memory round trips in it, so it is one kernel behind a memset,
+// and a large component's runs meet in a warp reduction and a block's
+// shared-memory row before they reach global memory.
 
 #include "common.cuh"
 
@@ -217,46 +220,139 @@ __global__ void __launch_bounds__(ZR_PICK_THREADS)
   }
 }
 
-__device__ __forceinline__ int mamri_lower_bound(const int32_t* __restrict__ a, int n, int32_t v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
+// run_stats. A thread takes four neighbouring slots: their lengths come as one
+// 16-byte load, and label, z0 (and gi, gj of a compacted table) are fetched
+// only where the length is positive. The lane sums its slots of one root, the
+// warp reduces where all its lanes hold the same root (a large component's
+// neighbouring lines), and a block sums in shared memory ((R, 4) int64 beside
+// the roots, 36 bytes a root) and adds its non-zero rows to the global
+// accumulator once; the block that finishes last writes the f32 rows. Above
+// RS_SHARED_ROOTS roots a block searches and adds in global memory.
 // gi/gj null: dense (nxp, k, nyq) table, coordinates from the slot position
 // (gi = p / (k*nyq), gj = p % nyq); otherwise a compacted table carrying them.
-__global__ void run_stats_kernel(const int32_t* __restrict__ lab, const int32_t* __restrict__ len,
-                                 const int32_t* __restrict__ z0, const int32_t* __restrict__ gi_c,
-                                 const int32_t* __restrict__ gj_c, long long m, int kny, int nyq,
-                                 const int32_t* __restrict__ roots, int num_roots,
-                                 unsigned long long* __restrict__ acc) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= m) return;
-  const long long l = len[p];
-  if (l <= 0) return;  // empty slot: every feature is 0
-  const int32_t label = lab[p];
-  const int r = mamri_lower_bound(roots, num_roots, label);
-  if (r == num_roots || roots[r] != label) return;
-  const long long gi = gi_c ? (long long)gi_c[p] : p / kny;
-  const long long gj = gj_c ? (long long)gj_c[p] : p % nyq;
-  unsigned long long* a = acc + 4LL * r;
-  atomicAdd(a + 0, (unsigned long long)l);
-  atomicAdd(a + 1, (unsigned long long)(gi * l));
-  atomicAdd(a + 2, (unsigned long long)(gj * l));
-  atomicAdd(a + 3, (unsigned long long)((long long)z0[p] * l + l * (l - 1) / 2));
+#define RS_THREADS 1024
+#define RS_SLOTS 4            // slots a thread takes at a time
+#define RS_SHARED_ROOTS 4096  // 144 KB of shared memory
+
+__device__ __forceinline__ void run_stats_add(unsigned long long* __restrict__ tab, int row,
+                                              const unsigned long long* f) {
+  for (int c = 0; c < 4; ++c) atomicAdd(tab + 4LL * row + c, f[c]);
 }
 
-__global__ void run_stats_finalize_kernel(const unsigned long long* __restrict__ acc,
-                                          const int32_t* __restrict__ roots, int num_roots,
-                                          float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= num_roots) return;
-  const int first = mamri_lower_bound(roots, num_roots, roots[r]);
-  for (int c = 0; c < 4; ++c) out[4 * r + c] = (float)(long long)acc[4LL * first + c];
+// the lengths of slots p .. p + 3 (0 past the end of the table)
+__device__ __forceinline__ int4 run_stats_lengths(const int32_t* __restrict__ len, long long m, long long p) {
+  int4 l = make_int4(0, 0, 0, 0);
+  if (p + RS_SLOTS <= m && ((uintptr_t)(len + p) & 15) == 0) {
+    l = *reinterpret_cast<const int4*>(len + p);
+  } else {
+    if (p + 0 < m) l.x = len[p + 0];
+    if (p + 1 < m) l.y = len[p + 1];
+    if (p + 2 < m) l.z = len[p + 2];
+    if (p + 3 < m) l.w = len[p + 3];
+  }
+  return l;
+}
+
+__global__ void __launch_bounds__(RS_THREADS)
+    run_stats_kernel(const int32_t* __restrict__ lab, const int32_t* __restrict__ len,
+                     const int32_t* __restrict__ z0, const int32_t* __restrict__ gi_c,
+                     const int32_t* __restrict__ gj_c, long long m, int kny, int nyq,
+                     const int32_t* __restrict__ roots, int num_roots, int in_shared,
+                     unsigned long long* __restrict__ acc, unsigned int* __restrict__ ticket,
+                     float* __restrict__ out) {
+  extern __shared__ unsigned long long rs_smem[];  // (R, 4) sums, then the R roots
+  const long long step = (long long)gridDim.x * RS_THREADS * RS_SLOTS;
+  // p0: the warp's first slot, so that a warp stays together
+  long long p0 = ((long long)blockIdx.x * RS_THREADS + (threadIdx.x & ~31)) * RS_SLOTS;
+  const int lane_slot = (threadIdx.x & 31) * RS_SLOTS;
+  int4 l = run_stats_lengths(len, m, p0 + lane_slot);  // in flight while the block sets up its table
+  unsigned long long* tab = acc;
+  const int32_t* srt = roots;
+  if (in_shared) {
+    tab = rs_smem;
+    int32_t* mine = (int32_t*)(rs_smem + 4LL * num_roots);
+    for (int r = threadIdx.x; r < num_roots; r += RS_THREADS) mine[r] = roots[r];
+    for (int r = threadIdx.x; r < 4 * num_roots; r += RS_THREADS) tab[r] = 0ULL;
+    srt = mine;
+    __syncthreads();
+  }
+
+  for (; p0 < m; p0 += step, l = run_stats_lengths(len, m, p0 + lane_slot)) {
+    const long long p = p0 + lane_slot;
+    const int32_t ln[RS_SLOTS] = {l.x, l.y, l.z, l.w};
+    int32_t label[RS_SLOTS], start[RS_SLOTS], gi[RS_SLOTS], gj[RS_SLOTS];
+#pragma unroll
+    for (int q = 0; q < RS_SLOTS; ++q) {
+      label[q] = MAMRI_BIG, start[q] = 0, gi[q] = 0, gj[q] = 0;
+      if (ln[q] > 0) {  // an empty slot adds nothing
+        label[q] = lab[p + q];
+        start[q] = z0[p + q];
+        gi[q] = gi_c ? gi_c[p + q] : (int32_t)((p + q) / kny);
+        gj[q] = gj_c ? gj_c[p + q] : (int32_t)((p + q) % nyq);
+      }
+    }
+    int row = -1;  // the root the lane is summing for, and its sums
+    unsigned long long f[4] = {0ULL, 0ULL, 0ULL, 0ULL};
+    bool searched = false;  // the last label looked up, and where it stands (-1: among no root)
+    int32_t seen = MAMRI_BIG;
+    int seen_row = -1;
+#pragma unroll
+    for (int q = 0; q < RS_SLOTS; ++q) {
+      if (ln[q] <= 0) continue;
+      if (!searched || label[q] != seen) {
+        searched = true;
+        seen = label[q];
+        seen_row = mamri_lower_bound(srt, num_roots, seen);
+        if (seen_row == num_roots || srt[seen_row] != seen) seen_row = -1;
+      }
+      const int r = seen_row;
+      if (r < 0) continue;
+      if (r != row) {
+        if (row >= 0) run_stats_add(tab, row, f);
+        row = r;
+        f[0] = f[1] = f[2] = f[3] = 0ULL;
+      }
+      const long long n = ln[q];
+      f[0] += (unsigned long long)n;
+      f[1] += (unsigned long long)(gi[q] * n);
+      f[2] += (unsigned long long)(gj[q] * n);
+      f[3] += (unsigned long long)(start[q] * n + n * (n - 1) / 2);
+    }
+    const int row0 = __shfl_sync(ZR_FULL, row, 0);
+    if (__all_sync(ZR_FULL, row == row0)) {
+      if (row0 < 0) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        for (int d = 16; d > 0; d >>= 1) f[c] += __shfl_xor_sync(ZR_FULL, f[c], d);
+      if ((threadIdx.x & 31) == 0) run_stats_add(tab, row0, f);
+    } else if (row >= 0) {
+      run_stats_add(tab, row, f);
+    }
+  }
+  if (in_shared) {
+    __syncthreads();
+    for (int r = threadIdx.x; r < num_roots; r += RS_THREADS)
+      if (tab[4LL * r] != 0ULL) run_stats_add(acc, r, tab + 4LL * r);  // no run: every sum is 0
+  }
+  if (!mamri_last_block(ticket)) return;
+  // entry e = 4 * r + c of the output; a repeated root (the sentinel padding above all) reads the
+  // row of its first occurrence. RS_SLOTS entries a thread at a time: their reads fly together
+  const int first_big = mamri_lower_bound(srt, num_roots, MAMRI_BIG);
+  for (int e0 = threadIdx.x; e0 < 4 * num_roots; e0 += RS_SLOTS * RS_THREADS) {
+    unsigned long long sum[RS_SLOTS];
+#pragma unroll
+    for (int u = 0; u < RS_SLOTS; ++u) {
+      const int e = e0 + u * RS_THREADS, r = e >> 2;
+      if (e >= 4 * num_roots) continue;
+      int first = r;
+      if (srt[r] == MAMRI_BIG) first = first_big;
+      else if (r > 0 && srt[r - 1] == srt[r]) first = mamri_lower_bound(srt, num_roots, srt[r]);
+      sum[u] = __ldcg(acc + 4LL * first + (e & 3));
+    }
+#pragma unroll
+    for (int u = 0; u < RS_SLOTS; ++u)
+      if (e0 + u * RS_THREADS < 4 * num_roots) out[e0 + u * RS_THREADS] = (float)(long long)sum[u];
+  }
 }
 
 // root_tab: the candidates of every (8, 128) block, cand_k each, then the
@@ -288,15 +384,31 @@ extern "C" int mamri_z_runs(const int32_t* lab, const int16_t* dfz, const int16_
   return (int)cudaGetLastError();
 }
 
+// acc: 4 * num_roots + 1 words of 64 bits (the sums, then the ticket), nothing
+// in them on entry. They are cleared here, ahead of the one kernel: its blocks
+// start in no order, so none of them could clear what the others add to.
 extern "C" int mamri_run_stats(const int32_t* lab, const int32_t* len, const int32_t* z0,
                                const int32_t* gi_c, const int32_t* gj_c, long long m, int kny,
                                int nyq, const int32_t* roots, int num_roots,
                                unsigned long long* acc, float* out, cudaStream_t stream) {
-  run_stats_kernel<<<mamri_blocks(m), MAMRI_THREADS, 0, stream>>>(lab, len, z0, gi_c, gj_c, m, kny,
-                                                                  nyq, roots, num_roots, acc);
-  cudaError_t err = cudaGetLastError();
+  if (m < 1 || num_roots < 1 || kny < 1 || nyq < 1) return (int)cudaErrorInvalidValue;
+  const int in_shared = num_roots <= RS_SHARED_ROOTS;
+  const size_t smem = in_shared ? (size_t)num_roots * (4 * sizeof(unsigned long long) + sizeof(int32_t)) : 0;
+  cudaError_t err = cudaFuncSetAttribute(run_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  run_stats_finalize_kernel<<<mamri_blocks(num_roots), MAMRI_THREADS, 0, stream>>>(
-      acc, roots, num_roots, out);
+  err = cudaMemsetAsync(acc, 0, (4 * (size_t)num_roots + 1) * sizeof(unsigned long long), stream);
+  if (err != cudaSuccess) return (int)err;
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  // a block per 4096 slots, at most two an SM: few blocks add a large component's row to `acc`
+  const long long per_block = (long long)RS_THREADS * RS_SLOTS;
+  long long blocks = (m + per_block - 1) / per_block;
+  const long long most = 2LL * (sms > 0 ? sms : 132);
+  if (blocks > most) blocks = most;
+  run_stats_kernel<<<(unsigned int)blocks, RS_THREADS, smem, stream>>>(
+      lab, len, z0, gi_c, gj_c, m, kny, nyq, roots, num_roots, in_shared, acc,
+      (unsigned int*)(acc + 4LL * num_roots), out);
   return (int)cudaGetLastError();
 }

@@ -47,7 +47,7 @@ LAUNCHES = {
     "component_stats_raster": 0,
 }
 ROOTS_MAX_K = 64  # csrc/roots.cu keeps each thread's k smallest roots in a fixed list
-STATS_MAX_ROOTS = 7168  # csrc/stats.cu: R x 4 int64 in the 227 KB of a block's shared memory
+STATS_MAX_ROOTS = 7168  # csrc/stats.cu: the roots a block ranks and keeps (20 B each) in shared memory
 
 
 def reset_launch_counts() -> None:
@@ -347,7 +347,7 @@ def _run_stats_launch(name, lab, ln, z0, gi, gj, kny, nyq, roots):
     r = roots.numel()
     if r < 1 or lab.numel() < 1:
         raise ValueError(f"{name}: needs at least one root and one run slot")
-    acc = torch.zeros((r, 4), dtype=torch.int64, device=lab.device)
+    acc = torch.empty(4 * r + 1, dtype=torch.int64, device=lab.device)  # sums and a ticket, cleared by the entry
     out = torch.empty((r, 4), dtype=torch.float32, device=lab.device)
     _launch(
         name, "mamri_run_stats",
@@ -485,12 +485,12 @@ def component_stats_raster(flat_labels, roots, nx: int, ny: int):
 
 
 def _stats_launch(name, flat, roots, nx, ny, nz, order):
-    srt = torch.sort(roots).values
     r = roots.numel()
-    acc = torch.zeros((r, 4), dtype=torch.int64, device=flat.device)
+    # (r, 4) int64 sums, a ticket and the r sorted roots (int32): all written by the entry and its kernels
+    scratch = torch.empty(4 * r + 1 + (r + 1) // 2, dtype=torch.int64, device=flat.device)
     out = torch.empty((r, 4), dtype=torch.float32, device=flat.device)
-    _launch(name, "mamri_component_stats", flat.data_ptr(), flat.numel(), roots.data_ptr(), srt.data_ptr(),
-            r, nx, ny, nz, order, acc.data_ptr(), out.data_ptr())
+    _launch(name, "mamri_component_stats", flat.data_ptr(), flat.numel(), roots.data_ptr(),
+            r, nx, ny, nz, order, scratch.data_ptr(), out.data_ptr())
     return out
 
 

@@ -21,7 +21,23 @@ from mamri_tpu_torch.perception import volume as tvolume
 
 @pytest.fixture(scope="module")
 def models():
-    return jrobot.load_robot_model(), trobot.load_robot_model()
+    return jrobot.load_robot_model(), trobot.load_robot_model(device="cpu")
+
+
+def test_robot_model_defaults_to_the_card():
+    """Without a `device` the model is built on the card, or refused where
+    there is none; the CPU is used only when asked for."""
+    if torch.cuda.is_available():
+        assert trobot.load_robot_model().fixed_offsets.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            trobot.load_robot_model()
+        with pytest.raises(RuntimeError, match="cuda"):
+            trobot.robot_model_from_numpy(*[np.zeros(1)] * 6, specs=())
+    model = trobot.load_robot_model(device="cpu")
+    assert model.fixed_offsets.device.type == "cpu"
+    heights = trobot.fk_all_links(model, torch.zeros(6))[:, 2, 3].tolist()
+    assert heights == [0.0, 20.0, 50.0, 200.0, 200.0, 355.0, 368.0, 439.0]
 
 
 def test_zero_pose_link_heights(models):
@@ -67,6 +83,7 @@ def test_robot_model_from_numpy_equals_loaded(models):
     crossed = trobot.robot_model_from_numpy(
         np.asarray(jm.fixed_offsets), np.asarray(jm.limits_rad), np.asarray(jm.steps_per_rev),
         np.asarray(jm.marker_local), np.asarray(jm.needle_tip), np.asarray(jm.needle_axis), jm.specs,
+        device="cpu",
     )
     for name in ("fixed_offsets", "limits_rad", "steps_per_rev", "marker_local", "needle_tip", "needle_axis"):
         assert torch.equal(getattr(crossed, name), getattr(tm, name)), name

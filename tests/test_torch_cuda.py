@@ -257,6 +257,136 @@ def test_z_runs_equals_twin(cuda, shape, k, cand_k, x_off, converge):
     _same(got, G.z_runs_plain(*args))
 
 
+def _stretch_labels(n, pool, seed, background=0.4):
+    """n labels in flat order: stretches of 1 to 400 equal values drawn from
+    `pool` or the sentinel, laid without regard to where lines end."""
+    rng = np.random.default_rng(seed)
+    lengths = np.where(rng.random(n // 8 + 2) < 0.7, rng.integers(1, 40, n // 8 + 2), rng.integers(40, 400, n // 8 + 2))
+    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), n)) + 1]
+    values = np.where(rng.random(lengths.size) < background, G.BIG, rng.choice(pool, lengths.size))
+    return np.repeat(values, lengths)[:n].astype(np.int32)
+
+
+def _stats_roots(num_roots, seed):
+    """(pool of label values, roots): unsorted, one repeated, the sentinel in
+    the middle, a third of them absent from the pool."""
+    rng = np.random.default_rng(seed)
+    pool = rng.permutation(3 * num_roots + 8)[: num_roots + 4].astype(np.int32)
+    roots = np.concatenate([pool[: 2 * num_roots // 3 + 1], 4 * num_roots + 16 + np.arange(num_roots, dtype=np.int32)])
+    roots = rng.permutation(roots[:num_roots])
+    if num_roots > 2:
+        roots[num_roots // 2] = G.BIG
+        roots[-1] = roots[0]
+    return pool, roots.astype(np.int32)
+
+
+def _component_stats_pair(order, flat, roots, shape):
+    nx, ny, nz = shape
+    if order == "xyz":
+        return G.component_stats_xyz(flat, roots, nx, ny, nz), G.component_stats_xyz_plain(flat, roots, nx, ny, nz)
+    return G.component_stats_raster(flat, roots, nx, ny), G.component_stats_raster_plain(flat, roots, nx, ny)
+
+
+@pytest.mark.parametrize("num_roots", [1, 128, 1024, 4096, 7168])
+@pytest.mark.parametrize("line", [1, 3, 31, 33, 128, 513])
+@pytest.mark.parametrize("order", ["xyz", "raster"])
+def test_component_stats_equals_twin(cuda, order, line, num_roots):
+    """Lines (z for xyz, x for raster) shorter than, at and past a warp's
+    128-label segment, at every table size; the labels' stretches cross the
+    ends of lines."""
+    rows = (12, 20) if line >= 128 else (64, 60)
+    shape = (*rows, line) if order == "xyz" else (line, *rows[::-1])
+    pool, roots = _stats_roots(num_roots, seed=line + num_roots)
+    flat = torch.as_tensor(_stretch_labels(int(np.prod(shape)), pool, seed=line)).to(cuda)
+    roots = torch.as_tensor(roots).to(cuda)
+    G.reset_launch_counts()
+    got, want = _component_stats_pair(order, flat, roots, shape)
+    _same(got, want)
+    assert G.LAUNCHES[f"component_stats_{order}"] == 1
+    assert float(got[:, 0].max()) > 0
+    assert torch.equal(got[-1], got[0])  # the repeated root
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("order", ["xyz", "raster"])
+def test_component_stats_of_an_unaligned_view(cuda, order, offset):
+    """Flat labels that start off a 16-byte boundary take the 4-byte loads."""
+    shape = (9, 10, 260) if order == "xyz" else (260, 10, 9)
+    n = int(np.prod(shape))
+    pool, roots = _stats_roots(64, seed=offset)
+    buf = torch.zeros(n + 4, dtype=torch.int32, device=cuda)
+    flat = buf[offset:offset + n]
+    flat.copy_(torch.as_tensor(_stretch_labels(n, pool, seed=offset)))
+    assert flat.data_ptr() % 16 == 4 * offset
+    _same(*_component_stats_pair(order, flat, torch.as_tensor(roots).to(cuda), shape))
+
+
+@pytest.mark.parametrize("order", ["xyz", "raster"])
+def test_component_stats_of_one_component(cuda, order):
+    """512x512x192 filled by one label: every update lands on one row, and
+    every sum passes 2^32."""
+    shape = (512, 512, 192)
+    flat = torch.full((int(np.prod(shape)),), 77, dtype=torch.int32, device=cuda)
+    roots = torch.tensor([G.BIG, 3, 77, 77, 500], dtype=torch.int32, device=cuda)
+    got, want = _component_stats_pair(order, flat, roots, shape)
+    _same(got, want)
+    assert float(got[2, 1:].min()) > 2**32 and float(got[2, 0]) == 512 * 512 * 192 and float(got[0].max()) == 0.0
+
+
+def test_component_stats_called_again(cuda):
+    """Nothing of one call is left for the next: the same call twice, then
+    another table size, then the first again."""
+    shape = (16, 24, 200)
+    n = int(np.prod(shape))
+    cases = []
+    for num_roots in (128, 4096, 1):
+        pool, roots = _stats_roots(num_roots, seed=num_roots)
+        cases.append((torch.as_tensor(_stretch_labels(n, pool, seed=num_roots)).to(cuda), torch.as_tensor(roots).to(cuda)))
+    for i in (0, 0, 1, 0, 2, 1):
+        for order in ("xyz", "raster"):
+            _same(*_component_stats_pair(order, *cases[i], shape))
+
+
+def _run_tables(shape, num_roots, kind, seed):
+    """(labels, lengths, z0, roots) of a dense (nxp, k, nyq) run table."""
+    rng = np.random.default_rng(seed)
+    roots = np.unique(rng.integers(0, 4 * num_roots + 8, num_roots)).astype(np.int32)
+    roots = np.concatenate([roots, np.full(num_roots - roots.size, G.BIG, np.int32)])
+    if num_roots > 2:
+        roots[1] = roots[0]  # a repeated root reads its first row
+    m = int(np.prod(shape))
+    lab = np.repeat(rng.integers(0, 4 * num_roots + 8, m // 3 + 1), 3)[:m].astype(np.int32)
+    lens = rng.integers(1, 3000, m).astype(np.int32)
+    if kind == "sparse":
+        lens[rng.random(m) < 0.98] = 0
+    elif kind == "empty":
+        lens[:] = 0
+    elif kind == "body":  # one component through every line
+        lab[:] = roots[0]
+        lens[:] = 32000
+    lab[lens == 0] = G.BIG
+    z0 = np.where(lens > 0, rng.integers(0, 700, m), 0).astype(np.int32)
+    return tuple(a.reshape(shape) for a in (lab, lens, z0)) + (roots,)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "mixed", "empty", "body"])
+@pytest.mark.parametrize("k,num_roots", [(8, 1), (8, 128), (16, 256), (8, 4096), (16, 6000)])
+def test_run_stats_equals_twin(cuda, k, num_roots, kind):
+    """Dense tables at both run depths, compacted ones at both caps; roots
+    kept in shared memory (<= 4096) and searched in global memory (6000)."""
+    lab, lens, z0, roots = (torch.as_tensor(a).to(cuda) for a in _run_tables((40, k, 256), num_roots, kind, seed=k + num_roots))
+    G.reset_launch_counts()
+    for _ in range(2):  # and again: nothing is left of the first call
+        _same(G.run_stats(lab, lens, z0, roots), G.run_stats_plain(lab, lens, z0, roots))
+    for cap in (32768, 131072):
+        cols = S.compact_runs(lab, lens, z0, cap)[:5]
+        assert cols[0].numel() == cap
+        _same(G.run_stats_compact(*cols, roots), G.run_stats_compact_plain(*cols, roots))
+    odd = [c[1:] for c in cols]  # columns that start off a 16-byte boundary
+    _same(G.run_stats_compact(*odd, roots), G.run_stats_compact_plain(*odd, roots))
+    assert G.LAUNCHES["run_stats"] == 2 and G.LAUNCHES["run_stats_compact"] == 3
+
+
 def test_stats_large_sums_and_many_roots(cuda):
     """A body whose coordinate sums pass 2^24 beside 960 single-voxel roots."""
     shape = (160, 160, 96)

@@ -197,7 +197,7 @@ def test_full_chain_ik_with_jax_restart_draws():
     JAX's exact uniform draws through `restart_guesses`."""
     from mamri_tpu.core.robot import load_robot_model as j_load
 
-    jm, tm = j_load(), load_robot_model()
+    jm, tm = j_load(), load_robot_model(device="cpu")
     base = _base_tf()
     rng = np.random.default_rng(5)
     pts = {

@@ -328,6 +328,58 @@ def test_run_stats_dense_and_compact_match_pallas():
     _assert_stats(G.run_stats_compact(*tcols[:5], roots), want)
 
 
+def _run_table_case(case):
+    """(labels, lengths, z0, roots) of a dense (8, 4, 128) run table."""
+    shape = (8, 4, 128)
+    rng = np.random.default_rng(len(case))
+    roots = np.array([3, 8, 8, 21, 300, BIG, BIG, BIG], np.int32)
+    labels = rng.choice(np.array([3, 8, 21, 55, 300], np.int32), size=shape)
+    lens = rng.integers(1, 60, shape).astype(np.int32)
+    z0 = rng.integers(0, 60, shape).astype(np.int32)
+    if case == "empty":
+        labels[:], lens[:], z0[:] = BIG, 0, 0
+    elif case == "full":  # every line of a 128-deep volume is one run of one component
+        labels[:], lens[:], z0[:] = 3, 128, 0
+    elif case == "single-root":
+        roots = np.array([21], np.int32)
+    elif case == "roots-all-sentinel":
+        roots = np.full(8, BIG, np.int32)
+    return labels, lens, z0, roots
+
+
+def _int64_run_stats(labels, lens, z0, gi, gj, roots):
+    """The exact sums, in numpy int64."""
+    n = lens.reshape(-1).astype(np.int64)
+    feats = np.stack([n, gi.reshape(-1) * n, gj.reshape(-1) * n, z0.reshape(-1) * n + n * (n - 1) // 2], axis=1)
+    hit = (labels.reshape(-1)[None, :] == roots[:, None]) & (n > 0)[None, :]
+    return np.stack([feats[h].sum(0) for h in hit])
+
+
+@pytest.mark.parametrize("table", ["dense", "compact"])
+@pytest.mark.parametrize("case", ["empty", "full", "single-root", "roots-all-sentinel"])
+def test_run_stats_edge_cases_match_pallas(case, table):
+    labels, lens, z0, roots = _run_table_case(case)
+    if table == "dense":
+        p = np.arange(labels.size, dtype=np.int64)
+        gi, gj = p // (4 * 128), p % 128
+        want = P.run_stats_matmul(*(jnp.asarray(a) for a in (labels, lens, z0, roots)), interpret=True)
+        got = G.run_stats(_t(labels), _t(lens), _t(z0), _t(roots))
+    else:
+        jcols = jseg.compact_runs(*(jnp.asarray(a) for a in (labels, lens, z0)), 4096)[:5]
+        cols = tseg.compact_runs(_t(labels), _t(lens), _t(z0), 4096)[:5]
+        for g, w in zip(cols, jcols):
+            _eq(g, w)
+        labels, lens, z0, gi, gj = (c.numpy() for c in cols)
+        gi, gj = gi.astype(np.int64), gj.astype(np.int64)
+        want = P.run_stats_matmul_compact(*jcols, jnp.asarray(roots), interpret=True)
+        got = G.run_stats_compact(*cols, _t(roots))
+    exact = _int64_run_stats(labels, lens, z0, gi, gj, roots)
+    _eq(got, exact.astype(np.float32))  # f32 of the exact integer, whatever its size
+    _assert_stats(got, want)
+    assert (exact.max() > 2**24) == (case == "full")
+    assert (exact.max() == 0) == (case in ("empty", "roots-all-sentinel"))
+
+
 def test_compact_runs_overflowing_cap_matches_jax():
     mask = _blob_mask(TILE, 8, density=0.05)
     lab, td = _converged(mask)

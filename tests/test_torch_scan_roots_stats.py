@@ -151,6 +151,69 @@ def test_component_stats_raster_matches_pallas(shape):
     _assert_stats(got, P.component_stats_matmul_reference(*args), roots)
 
 
+def _stats_edge_case(case, order):
+    """(flat labels in `order`'s flat order, roots, (nx, ny, nz)). The cases a
+    per-line, per-stretch sum can get wrong: a label that runs over the end
+    of a line, roots in any order, sizes off every power of two."""
+    shape = (5, 7, 3) if case == "odd-size" else (6, 5, 40)
+    nx, ny, nz = shape
+    line = nz if order == "xyz" else nx  # the flat order's fastest axis
+    n = nx * ny * nz
+    flat = np.full(n, BIG, np.int32)
+    if case == "line-ends":
+        flat[3 * line - 2:3 * line + 3] = 11  # over the end of a line
+        flat[2 * line * ny - 3:2 * line * ny + 2] = 12  # and over the end of a plane
+        flat[5 * line:7 * line] = 13  # two whole lines
+        flat[n - 2:] = 14
+        roots = np.array([11, 12, 13, 14, BIG, BIG], np.int32)
+    elif case == "one-component":
+        flat[:] = 0
+        roots = np.array([0, 7, BIG], np.int32)
+    else:
+        rng = np.random.default_rng(len(case))
+        lengths = rng.integers(1, 12, n)
+        values = np.where(rng.random(n) < 0.4, BIG, rng.integers(0, 30, n))
+        flat = np.repeat(values, lengths)[:n].astype(np.int32)
+        present = np.unique(flat[flat != BIG])
+        roots = {
+            "roots-any-order": np.concatenate([present[::-1][:6], [BIG, BIG], present[:3], present[:1], [1000]]),
+            "roots-all-sentinel": np.full(8, BIG),
+            "single-root": present[2:3],
+            "odd-size": present,
+        }[case].astype(np.int32)
+    return flat, roots, shape
+
+
+def _int64_stats(flat, roots, shape, order):
+    """The exact sums, in numpy int64."""
+    nx, ny, nz = shape
+    f = np.arange(flat.size, dtype=np.int64)
+    ijk = (f // (ny * nz), f // nz % ny, f % nz) if order == "xyz" else (f % nx, f // nx % ny, f // (nx * ny))
+    feats = np.stack([np.ones_like(f), *ijk], axis=1)
+    return np.stack([feats[flat == r].sum(0) if r != BIG else np.zeros(4, np.int64) for r in roots])
+
+
+@pytest.mark.parametrize("order", ["xyz", "raster"])
+@pytest.mark.parametrize(
+    "case", ["line-ends", "roots-any-order", "roots-all-sentinel", "odd-size", "one-component", "single-root"]
+)
+def test_component_stats_edge_cases_match_pallas(case, order):
+    flat, roots, (nx, ny, nz) = _stats_edge_case(case, order)
+    if order == "xyz":
+        want = P.component_stats_matmul_xyz(jnp.asarray(flat), jnp.asarray(roots), nx, ny, nz, interpret=True)
+        got = G.component_stats_matmul_xyz(_t(flat), _t(roots), nx, ny, nz)
+    else:
+        want = P.component_stats_matmul(jnp.asarray(flat), jnp.asarray(roots), nx, ny, interpret=True)
+        got = G.component_stats_matmul(_t(flat), _t(roots), nx, ny)
+    exact = _int64_stats(flat, roots, (nx, ny, nz), order)
+    assert exact.max() < 2**24  # so the f32 sums of the reference are exact too
+    _eq(got, exact.astype(np.float32))
+    valid = roots != BIG
+    _eq(got[valid], np.asarray(want)[valid])
+    if case != "roots-all-sentinel":
+        assert exact[:, 0].max() > 0
+
+
 @pytest.mark.parametrize("order", ["xyz", "raster"])
 def test_component_stats_sums_beyond_f32(order):
     """A (128, 128, 64) body whose coordinate sums pass 2^24, plus small
