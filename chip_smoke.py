@@ -22,7 +22,10 @@
    The four stats wrappers (two kernels) are also held against their twins at 4096 roots
    (the escalated size, where their tables take most of a block's shared
    memory) and on a 512x512x192 volume that is one component (every
-   coordinate sum above 2^32, every update on one row), and one profiled
+   coordinate sum above 2^32, every update on one row; `root_candidates`
+   there finds one root among all-foreground voxels); `root_candidates` also
+   runs on close_init's labels, where every foreground voxel is a root
+   (`all-roots`, kept out of the JSON's `ms` as `R4096` is), and one profiled
    call of each stats wrapper gives the device time of every launch behind
    it. An empty kernel, launched once, twice and three times in a row
    behind the same flush and spin, gives the launch floor
@@ -34,7 +37,11 @@
    behind a spin that outlasts the host's enqueue of the whole call).
 3. Runs `MamriEngine(device="cuda").estimate_pose` on bench.py's canonical
    scene rendered into 256^3 (random-free synthetic scan, known pose): one
-   warm-up, then 5 timed calls. Checks the pose against the truth.
+   warm-up, then 5 timed calls. Checks the pose against the truth. Then one
+   more call under `torch.cuda.set_sync_debug_mode("warn")`: a line gives
+   how many synchronizing calls it reported and the file:line of each, and
+   none may come from `api/engine.py` (`_fetch`'s one wait per attempt is
+   a CUDA event's, which the mode does not report).
 4. Escalated paths: a speckle scene must escalate through the compact
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
@@ -86,6 +93,7 @@ KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
 # kernels' 32-bit integer operations (compares, mins, adds) are counted
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+STRESS_VARIANTS = ("R4096", "all-roots")  # timed beside the others, kept out of a kernel's `ms`
 SPIN_CYCLES = 4_000_000  # ~2.4 ms at 1.7 GHz: longer than the host takes to enqueue a timed call
 SEGMENT_SPIN_CYCLES = 40_000_000  # ~24 ms: longer than the host takes to enqueue a whole segment_volume
 
@@ -390,6 +398,9 @@ def compare_kernels(data_np, label, card, failures, timings):
     for kk in (8, 16):
         both("root_candidates", g.root_candidates, g.root_candidates_plain, lambda: (lab, nx, ny, kk),
              4 * npad + 4 * (lab.shape[0] // 8) * (kk + 1), 2 * npad + 8 * fg, f"k{kk}")
+    # close_init's labels: every foreground voxel is a root
+    both("root_candidates", g.root_candidates, g.root_candidates_plain, lambda: (lab0, nx, ny, 16),
+         4 * npad + 4 * (lab0.shape[0] // 8) * 17, 2 * npad + 8 * fg, "all-roots")
 
     lab_c = lab[:nx, :ny, :nz].contiguous()
     flat = lab_c.reshape(-1)
@@ -418,7 +429,8 @@ def compare_one_component(shape, card, failures, timings):
     """The four stats wrappers against their twins on a volume that is one
     foreground component (label 0, its root's raster index): every voxel and
     every run updates one row, and every coordinate sum passes 2^32. The run
-    tables come from `z_runs` over the padded volume."""
+    tables come from `z_runs` over the padded volume. Then `root_candidates`
+    on the padded labels: every voxel foreground, one root."""
     import torch
     from mamri_tpu_torch.perception import gpu_ops as g
     from mamri_tpu_torch.perception.segmentation import _pad_for_kernels, compact_runs
@@ -453,12 +465,22 @@ def compare_one_component(shape, card, failures, timings):
             failures.append(f"{label} {name}: max |kernel - twin| = {err}")
         if not float(got[0, 1:].min()) > 2.0**32:
             failures.append(f"{label} {name}: expected every coordinate sum above 2^32, got {got[0].tolist()}")
-        kernel_ms, plain_ms = med_ms(fn, lambda: args), med_ms(plain, lambda: args)
-        bound_ms, bound_by = bound(nbytes + 20 * 128, nops)
-        timings.setdefault(label, {}).setdefault(name, {})[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
-        print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by}) ({card})")
+        _time_one(label, name, fn, plain, args, nbytes + 20 * 128, nops, err, card, timings)
+    got, want = g.root_candidates(padded, nx, ny, 16), g.root_candidates_plain(padded, nx, ny, 16)
+    err = float((got.double() - want.double()).abs().max())
+    if err != 0.0 or int(got[:, 16].sum()) != 1:
+        failures.append(f"{label} root_candidates: max |kernel - twin| = {err}, roots {int(got[:, 16].sum())} (want 1)")
+    npad = padded.numel()
+    _time_one(label, "root_candidates", g.root_candidates, g.root_candidates_plain, (padded, nx, ny, 16),
+              4 * npad + 4 * (padded.shape[0] // 8) * 17, 2 * npad + 8 * n, err, card, timings)
 
+
+def _time_one(label, name, fn, plain, args, nbytes, nops, err, card, timings):
+    kernel_ms, plain_ms = med_ms(fn, lambda: args), med_ms(plain, lambda: args)
+    bound_ms, bound_by = bound(nbytes, nops)
+    timings.setdefault(label, {}).setdefault(name, {})[name] = (kernel_ms, plain_ms, bound_ms, bound_by)
+    print(f"kernel {label} {name}: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) ({card})")
 
 
 def time_segmentation(vol, label, params, card):
@@ -547,6 +569,37 @@ def time_estimates(engine, vol, label, card):
     return p50
 
 
+def report_host_syncs(engine, vol):
+    """One more warm `estimate_pose` under torch's sync debug mode: prints
+    how many synchronizing calls it reports and where (file:line, times),
+    and fails if one comes from `api/engine.py`. `_fetch`'s one wait per
+    attempt is a CUDA event's, which the mode does not report (it flags
+    synchronizing copies and stream or device synchronizations)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            engine.current_angles = np.zeros(6, np.float32)
+            res = engine.estimate_pose(vol)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check_pose(engine, res, TRUE_ANGLES, "sync-debug 256^3")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[at] = where.get(at, 0) + 1
+    print(f"host syncs in one warm estimate_pose at 256^3: {sum(where.values())} "
+          f"{json.dumps(dict(sorted(where.items(), key=lambda kv: -kv[1])))}")
+    engine_syncs = [at for at in where if at.startswith("mamri_tpu_torch/api/engine.py")]
+    if engine_syncs:
+        raise AssertionError(f"api/engine.py synchronizes outside _fetch's wait: {engine_syncs}")
+
+
 def cold_warm(engine, vol, label, card):
     ms = []
     for _ in range(2):  # a cold call, then a warm one
@@ -620,6 +673,7 @@ def main() -> int:
     engine.estimate_pose(vol256)  # warm-up
     per_call = {"fused": dict(gpu_ops.LAUNCHES)}
     p50 = time_estimates(engine, vol256, "main 256^3", card)
+    report_host_syncs(engine, vol256)
 
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()
@@ -681,8 +735,10 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         variants = main_t[name]
-        # the slowest variant at the size the main path gives the kernel (not the escalated table)
-        ms, plain_ms, bound_ms, bound_by = max((t for v, t in variants.items() if v != "R4096"), key=lambda t: t[0])
+        # the slowest variant at the size the main path gives the kernel (not the escalated table, not every
+        # voxel a root)
+        ms, plain_ms, bound_ms, bound_by = max((t for v, t in variants.items() if v not in STRESS_VARIANTS),
+                                               key=lambda t: t[0])
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "mamri_z_runs": [_P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9,
     "mamri_run_stats": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P, _I, _P, _P],
     "mamri_scan_lines": [_P, _P, _P, ctypes.c_longlong, _I],
-    "mamri_root_candidates": [_P, _P, _I, _I, _I, _I, _I, _I],
+    "mamri_root_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     "mamri_component_stats": [_P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P],
     "mamri_noop": [_I],
 }

@@ -1,16 +1,20 @@
 """MamriEngine — the estimate path of mamri_tpu's facade, on PyTorch.
 
-Port of `MamriEngine.__init__`, `pipeline_fn`, `_escalate_seg_params`,
-`estimate_pose` and `_finish_estimate` (mamri_tpu/api/engine.py:117-536).
-The per-volume program (segmentation -> triplet matching -> baseplate fit ->
-full-chain IK -> motor steps) runs eagerly on the engine's device; the host
-reads the certificates once per attempt and escalates the segmentation
-budgets exactly as the reference does.
+Port of `_LRUCache`, `MamriEngine.__init__`, `pipeline_fn`, `clear_caches`,
+`_get_pipeline`, `_escalate_seg_params`, `estimate_pose` and
+`_finish_estimate` (mamri_tpu/api/engine.py:62-536). The per-volume program
+(segmentation -> triplet matching -> baseplate fit -> full-chain IK -> motor
+steps) runs eagerly on the engine's device, cached per (shape, params) as the
+reference caches its jitted programs; the host reads the certificates and
+results with one synchronization per attempt (`_fetch`) and escalates the
+segmentation budgets exactly as the reference does.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -43,6 +47,53 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+class _LRUCache:
+    """Bounded insertion-ordered cache of pipelines, the port's copy of the
+    reference's (mamri_tpu/api/engine.py:62-114). Thread-safe: every
+    operation holds one RLock, and `get_or_set` makes lookup-or-build one
+    atomic step."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = max(1, int(maxsize))
+        self._d: "OrderedDict" = OrderedDict()
+        self._lock = threading.RLock()
+
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._d
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+    def __getitem__(self, key):
+        with self._lock:
+            self._d.move_to_end(key)
+            return self._d[key]
+
+    def __setitem__(self, key, value) -> None:
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+
+    def get_or_set(self, key, factory):
+        """The cached value for `key`, built with `factory()` under the lock
+        if absent."""
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+                return self._d[key]
+            value = factory()
+            self[key] = value
+            return value
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
+
 class MamriEngine:
     def __init__(
         self,
@@ -51,6 +102,7 @@ class MamriEngine:
         ik_iters: int = 24,
         ik_restarts: int = 2,
         match_mode: str = "best",
+        jit_cache_size: int = 32,
         device="cuda",
     ):
         if match_mode == "global":
@@ -80,6 +132,7 @@ class MamriEngine:
         self.last_segmentation = None
         self.last_volume_geom = None
         self.last_estimated_steps: Optional[np.ndarray] = None
+        self._pipeline_cache = _LRUCache(jit_cache_size)
 
     def load_state_from_numpy(self, baseplate_tf=None, saved_baseplate=None, current_angles=None) -> None:
         """Take over engine state from another engine (e.g. mamri_tpu's)."""
@@ -157,6 +210,29 @@ class MamriEngine:
 
         return pipeline
 
+    def clear_caches(self) -> None:
+        """Drop every cached pipeline."""
+        self._pipeline_cache.clear()
+
+    def _get_pipeline(self, shape, seg_params: Optional[SegmentationParams] = None):
+        params = seg_params if seg_params is not None else self.seg_params
+        return self._pipeline_cache.get_or_set((tuple(shape), params), lambda: self.pipeline_fn(params))
+
+    def _fetch(self, dev_out: dict) -> dict:
+        """{key: tensor on the engine's device} -> {key: numpy array}, with one
+        host synchronization for all of them. On the card every copy is
+        queued without a wait into pinned host memory, one event is recorded
+        behind them and waited on, and the arrays are then copied out of the
+        pinned buffers, so no returned array points into memory the caching
+        host allocator may hand out again."""
+        if self.device.type != "cuda":
+            return {k: v.numpy() for k, v in dev_out.items()}
+        pinned = {k: v.to("cpu", non_blocking=True) for k, v in dev_out.items()}
+        copied = torch.cuda.Event()
+        copied.record()
+        copied.synchronize()
+        return {k: v.numpy().copy() for k, v in pinned.items()}
+
     @staticmethod
     def _escalate_seg_params(
         params: SegmentationParams,
@@ -226,25 +302,29 @@ class MamriEngine:
         dev = self.device
         saved = self.saved_baseplate if self.saved_baseplate is not None else np.eye(4, dtype=np.float32)
 
-        def flag(v):
-            return torch.tensor(bool(v), device=dev)
+        def upload(v, dtype=None):
+            # queued without a wait: a copy from pageable memory is staged
+            # before the call returns, so the host arrays may change after it
+            return torch.as_tensor(v, dtype=dtype).to(dev, non_blocking=True)
 
         args = (
-            torch.as_tensor(volume.data).to(dev),
-            torch.as_tensor(volume.spacing, dtype=torch.float32).to(dev),
-            torch.as_tensor(volume.origin, dtype=torch.float32).to(dev),
-            torch.as_tensor(saved, dtype=torch.float32).to(dev),
-            flag(use_saved_baseplate),
-            flag(self.saved_baseplate is not None),
-            flag(apply_correction),
-            torch.as_tensor(self.current_angles, dtype=torch.float32).to(dev),
+            upload(volume.data),
+            upload(volume.spacing, torch.float32),
+            upload(volume.origin, torch.float32),
+            upload(saved, torch.float32),
+            upload(bool(use_saved_baseplate)),
+            upload(self.saved_baseplate is not None),
+            upload(bool(apply_correction)),
+            upload(self.current_angles, torch.float32),
         )
         params = self.seg_params
         while True:
-            dev_out = self.pipeline_fn(params)(*args)
+            dev_out = self._get_pipeline(volume.shape, params)(*args)
+            # ONE host sync per attempt: certificates and results come back
+            # together; the body mask only once certification settles, and
+            # only when the caller keeps the segmentation
             mask = dev_out.pop("body_mask")
-            # results and certificates come back to the host once per attempt
-            out = {k: v.cpu().numpy() for k, v in dev_out.items()}
+            out = self._fetch(dev_out)
             certs = {k: bool(out[k]) for k in _CERTIFICATES}
             converged, complete, blobs_ok = (
                 certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
@@ -269,14 +349,14 @@ class MamriEngine:
             logger.warning(
                 "segmentation escalation: converged=%s roots_complete=%s "
                 "blobs_complete=%s num_components=%d -> passes=%s "
-                "max_sweeps=%d max_roots=%d max_blobs=%d compact=%s",
+                "max_sweeps=%d max_roots=%d max_blobs=%d exhaustive=%s",
                 converged, complete, blobs_ok, int(out["num_components"]),
                 stronger.passes, stronger.max_sweeps, stronger.max_roots,
-                stronger.max_blobs, stronger.compact_stats,
+                stronger.max_blobs, stronger.exhaustive_roots,
             )
             params = stronger
         if keep_segmentation:
-            out["body_mask"] = mask.cpu().numpy()
+            out.update(self._fetch({"body_mask": mask}))
         return self._finish_estimate(out, volume, store_state, keep_segmentation)
 
     def _finish_estimate(self, out: dict, volume: Volume, store_state: bool, keep_segmentation: bool) -> PoseEstimate:

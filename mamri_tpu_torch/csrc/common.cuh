@@ -24,19 +24,24 @@ __device__ __forceinline__ int mamri_lower_bound(const int32_t* __restrict__ a, 
   return lo;
 }
 
-// The block that finishes last, for a grid whose blocks add to global
-// accumulators and whose last one reads them all: every thread fences its
-// writes, then one thread takes a ticket from a counter that was zero before
-// the launch. True in every thread of the one block that drew the last
-// ticket; that block then reads the accumulators past L1 (__ldcg).
-__device__ __forceinline__ bool mamri_last_block(unsigned int* ticket) {
+// The block that finishes last of `blocks` blocks sharing a ticket (by
+// default the whole grid), for blocks that write partial results and whose
+// last one reads them all: every thread fences its writes, then one thread
+// takes a ticket from a counter that was zero before the launch. True in
+// every thread of the one block that drew the last ticket; that block then
+// reads the partial results past L1 (__ldcg).
+__device__ __forceinline__ bool mamri_last_block(unsigned int* ticket, unsigned int blocks) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == blocks - 1;
   __syncthreads();
   if (last) __threadfence();
   return last;
+}
+
+__device__ __forceinline__ bool mamri_last_block(unsigned int* ticket) {
+  return mamri_last_block(ticket, gridDim.x);
 }
 
 // Geometry of one line along `axis` of a C-contiguous (n0, n1, n2) volume:

@@ -46,7 +46,8 @@ LAUNCHES = {
     "component_stats_xyz": 0,
     "component_stats_raster": 0,
 }
-ROOTS_MAX_K = 64  # csrc/roots.cu keeps each thread's k smallest roots in a fixed list
+ROOTS_MAX_K = 64  # csrc/roots.cu: the picks of a chunk of rows, and of a slab, are rows of k + 1 words
+ROOTS_LIST_CAP = 8192  # csrc/roots.cu: the roots a block lists in shared memory; a chunk holds at most this many cells
 STATS_MAX_ROOTS = 7168  # csrc/stats.cu: the roots a block ranks and keeps (20 B each) in shared memory
 
 
@@ -429,9 +430,15 @@ def root_candidates(labels, nx: int, ny: int, k: int = 8):
     if not _on_cuda(labels):
         return root_candidates_plain(labels, nx, ny, k)
     nxp, nyp, nzp = labels.shape
-    out = torch.empty((nxp // 8, k + 1), dtype=torch.int32, device=labels.device)
-    _launch("root_candidates", "mamri_root_candidates", labels.data_ptr(), out.data_ptr(),
-            nxp // 8, nyp, nzp, nx, ny, k)
+    slabs = nxp // 8
+    rows = max(1, min(64, ROOTS_LIST_CAP // nzp))  # rows of a block's chunk: its cells fit the list
+    chunks = -(-8 * nyp // rows)
+    out = torch.empty((slabs, k + 1), dtype=torch.int32, device=labels.device)
+    # each chunk's picks and count, then a ticket a slab (cleared by the entry)
+    scratch = torch.empty(slabs * chunks * (k + 1) + slabs if chunks > 1 else 1, dtype=torch.int32,
+                          device=labels.device)
+    _launch("root_candidates", "mamri_root_candidates", labels.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            slabs, nyp, nzp, nx, ny, k, rows)
     return out
 
 

@@ -257,6 +257,61 @@ def test_z_runs_equals_twin(cuda, shape, k, cand_k, x_off, converge):
     _same(got, G.z_runs_plain(*args))
 
 
+def _root_labels(case, seed=0):
+    """(padded labels, nx, ny) for root_candidates: raster-index labels of
+    which a random part are roots, or every voxel a root, sentinel padding."""
+    shape, pad = {
+        "sparse": ((24, 40, 300), (24, 40, 300)),  # 16-byte loads, 12 chunks a slab
+        "bench-like": ((250, 250, 250), (256, 256, 256)),  # 32 slabs of 64 chunks, few roots
+        "every-root": ((14, 9, 12), (16, 16, 12)),
+        "nzp-odd": ((16, 8, 37), (16, 8, 37)),  # 4-byte loads
+        "one-slab": ((8, 10, 40), (8, 10, 40)),
+        "all-sentinel": ((16, 8, 128), (16, 8, 128)),
+        "many-chunks": ((8, 64, 128), (8, 64, 128)),  # every chunk's list full, the slab's merge long
+        "list-overflow": ((8, 1, 8196), (8, 1, 8196)),  # a chunk of one row longer than the list
+        "list-overflow-odd": ((8, 2, 9001), (8, 2, 9001)),
+    }[case]
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    i, j, k = np.indices(shape)
+    lin = (k * nx * ny + j * nx + i).astype(np.int64)
+    if case in ("sparse", "nzp-odd", "one-slab"):
+        lin = np.where(rng.random(shape) < 0.5, lin, lin + 1)
+        lin = np.where(rng.random(shape) < 0.3, G.BIG, lin)
+    elif case == "bench-like":
+        lin = np.where(rng.random(shape) < 1e-4, lin, np.where(rng.random(shape) < 0.9, G.BIG, 0))
+    elif case == "all-sentinel":
+        lin = np.full(shape, G.BIG)
+    lab = np.full(pad, G.BIG, np.int32)
+    lab[:nx, :ny, :nz] = np.minimum(lin, G.BIG)
+    return lab, nx, ny
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+@pytest.mark.parametrize("case", ["sparse", "bench-like", "every-root", "nzp-odd", "one-slab", "all-sentinel",
+                                  "many-chunks", "list-overflow", "list-overflow-odd"])
+def test_root_candidates_equals_twin(cuda, case, k):
+    lab, nx, ny = _root_labels(case, seed=k)
+    lab = torch.as_tensor(lab).to(cuda)
+    G.reset_launch_counts()
+    for _ in range(2):  # and again: the tickets are cleared for every call
+        _same(G.root_candidates(lab, nx, ny, k), G.root_candidates_plain(lab, nx, ny, k))
+    assert G.LAUNCHES["root_candidates"] == 2
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("case", ["sparse", "every-root"])
+def test_root_candidates_of_an_unaligned_view(cuda, case, offset):
+    """Labels that start off a 16-byte boundary take the 4-byte loads."""
+    lab_np, nx, ny = _root_labels(case, seed=offset)
+    buf = torch.zeros(lab_np.size + 4, dtype=torch.int32, device=cuda)
+    lab = buf[offset:offset + lab_np.size].view(lab_np.shape)
+    lab.copy_(torch.as_tensor(lab_np))
+    assert lab.data_ptr() % 16 == 4 * offset
+    for k in (8, 64):
+        _same(G.root_candidates(lab, nx, ny, k), G.root_candidates_plain(lab, nx, ny, k))
+
+
 def _stretch_labels(n, pool, seed, background=0.4):
     """n labels in flat order: stretches of 1 to 400 equal values drawn from
     `pool` or the sentinel, laid without regard to where lines end."""
@@ -442,3 +497,45 @@ def test_cuda_tensors_never_reach_a_twin(cuda, monkeypatch):
     G.ccl_sweep_pallas(lab, (lab == G.BIG).to(torch.int32))
     G.component_stats_matmul(lab.permute(2, 1, 0).contiguous().reshape(-1), lab.reshape(-1)[:8].contiguous(), 40, 40)
     torch.cuda.synchronize()
+
+
+def test_engine_fetch_and_host_syncs(cuda):
+    """The engine's `_fetch` on the card equals the per-key `.cpu().numpy()`
+    dict (keys, dtypes, shapes, values) and hands out arrays of their own;
+    a warm `estimate_pose` under the sync debug mode reports no synchronizing
+    call from `api/engine.py`."""
+    import warnings
+
+    from mamri_tpu_torch.api import engine as E
+    from mamri_tpu_torch.core import transforms as T
+    from mamri_tpu_torch.core.robot import load_robot_model, marker_world_positions
+
+    eng = E.MamriEngine(device=cuda, ik_restarts=0)
+    truth = torch.tensor([0.3, -0.7, 0.5, 0.2, -0.4, 0.6])
+    base = T.translate(torch.tensor([-60.0, -120.0, 0.0])) @ T.rot_x(-np.pi / 2) @ T.rot_z(0.15)
+    model_cpu = load_robot_model(device="cpu")
+    pts = torch.cat([marker_world_positions(model_cpu, truth, ln, base) for ln in E.MARKER_LINKS]).numpy()
+    lo, hi = pts.min(0) - 30, pts.max(0) + 30
+    origin = np.array([-hi[0], -hi[1], lo[2]], np.float32)
+    shape = tuple(int(np.ceil(x)) for x in (hi - lo) / 3.0)
+    vol = synthetic_volume(shape=shape, spacing=(3.0, 3.0, 3.0), origin=origin, fiducials_ras=pts, fiducial_radius_mm=4.0)
+    args = (torch.as_tensor(vol.data).to(cuda), torch.tensor(vol.spacing, device=cuda), torch.tensor(origin, device=cuda),
+            torch.eye(4, device=cuda), *(torch.tensor(False, device=cuda) for _ in range(3)), torch.zeros(6, device=cuda))
+    dev_out = eng._get_pipeline(vol.shape)(*args)
+    got = eng._fetch(dev_out)
+    want = {k: v.cpu().numpy() for k, v in dev_out.items()}
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert got[k].base is None, k  # copied out of the pinned buffer
+    assert eng.estimate_pose(vol).success
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert eng.estimate_pose(vol).success
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    assert not [s for s in syncs if "api/engine.py" in s.replace("\\", "/")], syncs

@@ -22,13 +22,14 @@ import jax
 import jax.numpy as jnp
 
 from mamri_tpu.api import MamriEngine as JaxEngine
+from mamri_tpu.api.engine import _LRUCache as JaxLRUCache
 from mamri_tpu.core import transforms as jT
 from mamri_tpu.core.robot import fk_all_links as j_fk
 from mamri_tpu.core.robot import marker_world_positions
 from mamri_tpu.ik.residuals import solve_full_chain_ik as j_solve
 from mamri_tpu.perception.segmentation import SegmentationParams as JaxSegParams
 from mamri_tpu.perception.volume import synthetic_volume
-from mamri_tpu_torch.api.engine import MamriEngine
+from mamri_tpu_torch.api.engine import MamriEngine, _LRUCache
 from mamri_tpu_torch.core.robot import load_robot_model
 from mamri_tpu_torch.ik.residuals import solve_full_chain_ik as t_solve
 from mamri_tpu_torch.perception.segmentation import SegmentationParams
@@ -36,6 +37,9 @@ from mamri_tpu_torch.perception.volume import Volume
 
 TRUE_ANGLES = np.array([0.3, -0.7, 0.5, 0.2, -0.4, 0.6], dtype=np.float32)
 MARKER_LINKS = ["Baseplate", "Joint2", "Joint4", "Joint6"]
+PIPELINE_KEYS = ("success", "angles", "steps", "rmse", "base_tf", "base_ok", "base_source", "markers_found",
+                 "num_blobs", "body_mask", "body_found", "num_components", "seg_converged", "roots_complete",
+                 "blobs_complete", "seg_count_ok", "seg_cand_ok", "seg_runs_ok", "seg_compact_ok")
 CERTS = ("seg_converged", "roots_complete", "blobs_complete", "seg_count_ok", "seg_cand_ok", "seg_runs_ok",
          "seg_compact_ok")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,7 +131,8 @@ def test_nonfinite_voxels_match_jax(jax_engine, scene):
 
 def test_roots_escalation_matches_jax(jax_engine, scene, caplog):
     """300 lone speckles overflow the default 128 roots: both engines
-    escalate (the port to the compact run-stats path) and agree."""
+    escalate (the port to the compact run-stats path) and agree, down to
+    the escalation warnings they log."""
     vol, base = scene
     data = np.array(vol.data, copy=True)
     rng = np.random.default_rng(11)
@@ -135,14 +140,35 @@ def test_roots_escalation_matches_jax(jax_engine, scene, caplog):
     for i, j, k in rng.integers(0, np.array(data.shape)[None, :], size=(300, 3)):
         if not bright[max(i - 2, 0):i + 3, max(j - 2, 0):j + 3, max(k - 2, 0):k + 3].any():
             data[i, j, k] = 100.0
-    jres = jax_engine.estimate_pose(type(vol)(data=data, spacing=vol.spacing, origin=vol.origin))
+
+    def warnings_of(engine_module, run):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING):
+            result = run()
+        return result, [r.getMessage() for r in caplog.records if r.name == engine_module]
+
+    jres, jax_said = warnings_of(
+        "mamri_tpu.api.engine", lambda: jax_engine.estimate_pose(type(vol)(data=data, spacing=vol.spacing, origin=vol.origin))
+    )
     teng = MamriEngine(ik_restarts=0, device="cpu")
-    with caplog.at_level(logging.WARNING, logger="mamri_tpu_torch.api.engine"):
-        tres = teng.estimate_pose(Volume(data, vol.spacing, vol.origin))
-    assert any("escalation" in r.message for r in caplog.records)
+    tres, port_said = warnings_of("mamri_tpu_torch.api.engine", lambda: teng.estimate_pose(Volume(data, vol.spacing, vol.origin)))
+    assert any("escalation" in m for m in port_said)
     assert int(teng.last_segmentation["num_components"]) > 128
     assert tres.success and all(tres.markers_found.values())
     _compare(jax_engine, jres, teng, tres, base)
+
+    # on the CPU the reference takes its jnp path, whose failed top-k also
+    # turns on `exhaustive_roots`; the port's `use_pallas=False` is that path,
+    # and it logs the reference's lines letter for letter
+    assert jax_said and all("exhaustive=True" in m for m in jax_said if "escalation" in m)
+    jnp_params = SegmentationParams(max_sweeps=2, passes=3, max_roots=128, use_pallas=False)
+    jnp_eng = MamriEngine(seg_params=jnp_params, ik_restarts=0, device="cpu")
+    jnp_res, jnp_said = warnings_of("mamri_tpu_torch.api.engine",
+                                    lambda: jnp_eng.estimate_pose(Volume(data, vol.spacing, vol.origin)))
+    assert jnp_said == jax_said
+    _compare(jax_engine, jres, jnp_eng, jnp_res, base)
+    # the kernel path, as the reference's on its accelerator, leaves it off
+    assert port_said == [m.replace("exhaustive=True", "exhaustive=False") for m in jax_said]
 
 
 def test_nonfused_radius1_matches_jax(jax_engine):
@@ -183,13 +209,25 @@ def test_escalation_steps_match_jax(use_pallas, scene, monkeypatch):
         seen.append(kwargs["jnp_path"])
         return escalate(params, *args, **kwargs)
 
+    fetched = []
+    fetch = MamriEngine._fetch
+
+    def fetch_spy(self, dev_out):
+        fetched.append(sorted(dev_out))
+        return fetch(self, dev_out)
+
     monkeypatch.setattr(MamriEngine, "_escalate_seg_params", staticmethod(spy))
+    monkeypatch.setattr(MamriEngine, "_fetch", fetch_spy)
     vol, _ = scene
     starved = SegmentationParams(max_roots=8, max_blobs=8, use_pallas=use_pallas)  # 13 components
     teng = MamriEngine(seg_params=starved, ik_restarts=0, device="cpu")
     assert teng.estimate_pose(Volume(vol.data, vol.spacing, vol.origin)).success
     assert seen and all(s == jnp_path for s in seen)
     assert bool(teng.last_segmentation["roots_complete"])
+    # one fetch of every result and certificate per attempt (each escalation
+    # is one more attempt), then the body mask once
+    per_attempt = sorted(k for k in PIPELINE_KEYS if k != "body_mask")
+    assert fetched == [per_attempt] * (len(seen) + 1) + [["body_mask"]]
 
 
 def test_full_chain_ik_with_jax_restart_draws():
@@ -245,6 +283,9 @@ def test_saved_baseplate_and_failures(jax_engine, scene):
 
 
 def test_engine_options():
+    eng = MamriEngine(jit_cache_size=3, device="cpu")
+    assert eng._pipeline_cache.maxsize == 3 and len(eng._pipeline_cache) == 0
+    assert MamriEngine(device="cpu")._pipeline_cache.maxsize == 32  # the reference's default
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MamriEngine(match_mode="global", device="cpu")
     with pytest.raises(ValueError):
@@ -252,6 +293,75 @@ def test_engine_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             MamriEngine(device="cuda")
+
+
+def test_pipeline_cache_lru_bound():
+    """tests/test_engine.py's `test_jit_cache_lru_bound` on the port: the
+    pipeline cache is bounded, a hit refreshes recency and returns the same
+    object, and `clear_caches` empties it."""
+    eng = MamriEngine(jit_cache_size=4, device="cpu")
+    params = eng.seg_params
+    first_key = ((16, 16, 16), params)
+    for n in range(16, 40, 2):  # 12 distinct shapes
+        eng._get_pipeline((n, n, n), params)
+    assert len(eng._pipeline_cache) <= 4
+    assert first_key not in eng._pipeline_cache  # oldest evicted
+
+    surviving = list(eng._pipeline_cache._d.keys())
+    eng._get_pipeline(surviving[0][0], params)
+    eng._get_pipeline((96, 96, 96), params)
+    assert surviving[0] in eng._pipeline_cache
+
+    a = eng._get_pipeline((96, 96, 96), params)
+    b = eng._get_pipeline((96, 96, 96))  # the engine's own params are the default key
+    assert a is b
+    assert eng._get_pipeline((96, 96, 96), params._replace(max_roots=1024)) is not a
+
+    eng.clear_caches()
+    assert len(eng._pipeline_cache) == 0
+
+
+def test_lru_cache_matches_reference():
+    """The port's `_LRUCache` against mamri_tpu's on one seeded sequence of
+    sets, gets and get_or_sets: the same values, lengths and keys in order."""
+    rng = np.random.default_rng(8)
+    ours, theirs = _LRUCache(5), JaxLRUCache(5)
+    for step in range(400):
+        op, key = int(rng.integers(0, 3)), int(rng.integers(0, 9))
+        if op == 0:
+            ours[key] = theirs[key] = step
+        elif op == 1 and key in theirs:
+            assert key in ours
+            assert ours[key] == theirs[key]
+        elif op == 2:
+            assert ours.get_or_set(key, lambda: step) == theirs.get_or_set(key, lambda: step)
+        assert len(ours) == len(theirs) <= 5
+        assert list(ours._d.items()) == list(theirs._d.items())
+    ours.clear()
+    assert len(ours) == 0 and 0 not in ours
+
+
+def test_fetch_equals_per_key_copies(scene):
+    """`_fetch` of one attempt's outputs equals the per-key `.cpu().numpy()`
+    dict it replaced: the same keys, dtypes, shapes and values."""
+    vol, _ = scene
+    eng = MamriEngine(ik_restarts=0, device="cpu")
+    dev_out = eng._get_pipeline(vol.shape)(
+        torch.as_tensor(np.asarray(vol.data)), torch.as_tensor(vol.spacing, dtype=torch.float32),
+        torch.as_tensor(vol.origin, dtype=torch.float32), torch.eye(4), torch.tensor(False), torch.tensor(False),
+        torch.tensor(False), torch.zeros(6),
+    )
+    assert set(dev_out) == set(PIPELINE_KEYS)
+    got = eng._fetch(dev_out)
+    want = {k: v.cpu().numpy() for k, v in dev_out.items()}
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["steps"].dtype == np.int32 and got["angles"].dtype == np.float32
+    assert got["markers_found"].dtype == np.bool_ and got["markers_found"].shape == (4,)
+    assert got["base_tf"].dtype == np.float32 and got["base_tf"].shape == (4, 4)
+    assert bool(got["seg_converged"]) and bool(got["success"])
 
 
 def test_port_imports_without_jax():

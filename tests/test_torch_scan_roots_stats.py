@@ -89,19 +89,46 @@ def test_ccl_sweep_pallas_matches_pallas():
 
 
 # ------------------------------------------------------------ root_candidates
-@pytest.mark.parametrize("k", [8, 16])
-def test_extract_root_candidates_matches_pallas(k):
-    """Labels of a (20, 12, 40) grid padded with the sentinel to (24, 16, 40);
-    20 lone voxels at x = 9 put more than 16 roots into the second slab."""
-    nx, ny, nz = 20, 12, 40
-    mask = _blob_mask((nx, ny, nz), 4, n_blobs=6, density=0.0)
-    mask[8:11, 0:3, :] = False
-    mask[9, 1, ::2] = True
-    lab = np.full((24, 16, nz), BIG, np.int32)
-    lab[:nx, :ny] = _converged_labels(mask)
+def _roots_case(case):
+    """(padded labels, nx, ny) of one root_candidates case."""
+    if case == "blobs":  # (20, 12, 40) padded with the sentinel to (24, 16, 40); 20 lone voxels at x = 9
+        nx, ny, nz = 20, 12, 40
+        mask = _blob_mask((nx, ny, nz), 4, n_blobs=6, density=0.0)
+        mask[8:11, 0:3, :] = False
+        mask[9, 1, ::2] = True
+        lab = np.full((24, 16, nz), BIG, np.int32)
+        lab[:nx, :ny] = _converged_labels(mask)
+        return lab, nx, ny
+    if case == "every-root":  # close_init's labels of a volume all in band
+        nx, ny, nz = 14, 9, 12
+        i, j, k = np.indices((nx, ny, nz))
+        lab = np.full((16, 16, nz), BIG, np.int32)
+        lab[:nx, :ny] = k * nx * ny + j * nx + i
+        return lab, nx, ny
+    if case == "all-sentinel":
+        return np.full((16, 8, 128), BIG, np.int32), 16, 8
+    shape = {"nzp-odd": (16, 8, 37), "one-slab": (8, 10, 40)}[case]
+    return _converged_labels(_blob_mask(shape, len(case), n_blobs=3)), shape[0], shape[1]
+
+
+@pytest.mark.parametrize(
+    "case,k",
+    [("blobs", 8), ("blobs", 16), ("blobs", 1), ("blobs", 64), ("every-root", 8), ("nzp-odd", 8),
+     ("one-slab", 16), ("all-sentinel", 8)],
+    ids=["8", "16", "k1", "k64", "every-root", "nzp-odd", "one-slab", "all-sentinel"],
+)
+def test_extract_root_candidates_matches_pallas(case, k):
+    """The twin against the Pallas kernel in interpret mode: blob labels in
+    which a slab overflows k, every voxel a root, a z length that is not a
+    multiple of 4, a single slab, no root at all."""
+    lab, nx, ny = _roots_case(case)
     want = P.extract_root_candidates(jnp.asarray(lab), nx, ny, k=k, interpret=True)
     got = G.extract_root_candidates(_t(lab), nx, ny, k=k)
-    assert int(np.asarray(want[1]).max()) > 16  # a slab overflows k
+    most = int(np.asarray(want[1]).max())  # the most roots in a slab
+    if case == "blobs":
+        assert most > 16  # a slab overflows k
+    elif case in ("every-root", "all-sentinel"):
+        assert most == (8 * 9 * 12 if case == "every-root" else 0)
     for g, w in zip(got, want):
         _eq(g, w)
 
