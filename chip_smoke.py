@@ -27,7 +27,8 @@
    runs on close_init's labels, where every foreground voxel is a root
    (`all-roots`, kept out of the JSON's `ms` as `R4096` is), and one profiled
    call of each stats wrapper gives the device time of every launch behind
-   it. An empty kernel, launched once, twice and three times in a row
+   it (profiled again, up to 5 sessions, when torch.profiler records no
+   device activity; printed as not measured after that). An empty kernel, launched once, twice and three times in a row
    behind the same flush and spin, gives the launch floor
    (`launch_floor_ms`): the least a wrapper of that many dependent launches
    can take, whatever its bytes.
@@ -51,10 +52,26 @@
    must launch `component_stats_xyz` and never `close_init`.
 7. The kernel-parity harness, `run_parity_checks` at sizes 128 and 80 on the
    card: every check must hold.
+8. Batch and async at 256^3: bench.py's four scenes as one
+   `estimate_pose_batch` (every row passes check_pose's criteria and equals
+   `estimate_pose` of its volume on the card exactly, and the batch launches
+   exactly the kernels of those four calls), timed (p50 of 5) against four
+   sequential `estimate_pose` calls; a batch with one noisy volume (only it
+   escalates, every row equal to its single call); three frames through
+   `estimate_pose_async` / `estimate_pose_collect`, each equal to the
+   synchronous path's, with dispatch and collect times and the host syncs
+   the sync debug mode reports under dispatch (printed, not failed on).
+9. Planning on the bench scene at 256^3 after `estimate_pose`: the
+   collision world's build, `find_entry_point`, `plan_trajectory`,
+   `plan_trajectory_sweep` over 3 distances, `plan_heuristic_path` (100
+   steps) and `validate_plan_exact`, each p50 of 5 on the card, and each held
+   against the same call of a `device="cpu"` engine carrying the same state:
+   the world and entry point equal, flags equal, angles within 1e-3 rad.
 
-Each path (phases 3-5, 6, 7) runs with the launch counts set to 0 just
-before it and read just after it; every kernel of a path must have launched
-in it. The last two lines are the kernels' JSON and the result JSON; any
+Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames) runs
+with the launch counts set to 0 just before it and read just after it (for
+phase 8, the launches of its own calls are tallied); every kernel of a path
+must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
 failure raises and exits non-zero. A kernel's JSON entry gives its slowest
 variant at 256^3 (`ms`, `plain_ms`, `bound_ms` of that variant) and every
 variant's times in `ms_by_variant`; the kernels' JSON also carries
@@ -74,6 +91,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 5
 TRUE_ANGLES = np.array([0.3, -0.7, 0.5, 0.2, -0.4, 0.6], dtype=np.float32)
+BODY_CENTER = np.array([-60.0, -40.0, 130.0], dtype=np.float32)  # bench.py's body, the planning target
 MARKER_LINKS = ("Baseplate", "Joint2", "Joint4", "Joint6")
 PALLAS = "mamri_tpu/perception/pallas_ops.py"
 KERNELS = {  # wrapper -> (CUDA source, the TPU kernel it replaces)
@@ -170,25 +188,32 @@ def launch_floor(card):
     return floor
 
 
-def launch_split(fn, make_args):
-    """[(kernel or memset name, device microseconds), ...] of one call of
-    fn(*make_args()) with the L2 flushed, in launch order, from one profiled
-    call."""
+def launch_split(fn, make_args, tries=5):
+    """([(kernel or memset name, device microseconds), ...], sessions) of
+    one call of fn(*make_args()) with the L2 flushed, in launch order, from
+    one profiled call. torch.profiler has now and then come back from a
+    session with no device events at all (one run of this script on an
+    H100 lost the third of its 18 profiled calls so), so an empty session is profiled
+    again, up to `tries` sessions; the split is None if none of them showed
+    device activity. The split is a breakdown printed beside the CUDA-event
+    times, which do not depend on it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(*make_args())  # warm-up
-    args = make_args()
-    flush_l2()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(*args)
+    for session in range(1, tries + 1):
+        args = make_args()
+        flush_l2()
         torch.cuda.synchronize()
-    parts = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not parts:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return [(name.split("(")[0], us) for _, name, us in parts]  # a kernel's name without its signature
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        parts = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if parts:
+            # a kernel's name without its signature
+            return [(name.split("(")[0], us) for _, name, us in parts], session
+    return None, tries
 
 
 # ------------------------------------------------------------------ scenes
@@ -207,9 +232,11 @@ def _markers(model, angles, base):
     return torch.cat([marker_world_positions(model, a, ln, base) for ln in MARKER_LINKS]).numpy()
 
 
-def bench_scene(model, shape):
-    """bench.py's canonical scene (its first of 4, with the union bounding
-    box of all 4) rendered into `shape` with per-axis spacing."""
+def bench_scenes(model, shape, count=4):
+    """bench.py's scenes (its canonical pose and 3 seeded random ones), the
+    first `count` of them, each rendered into `shape` in the union bounding
+    box of all 4 (per-axis spacing where `shape` is not a cube): [(volume,
+    true angles, base transform), ...]."""
     from mamri_tpu_torch.perception.volume import synthetic_volume
 
     rng = np.random.default_rng(23)
@@ -223,10 +250,9 @@ def bench_scene(model, shape):
             angles[4] = np.float32(0.3 if angles[4] >= 0 else -0.3)
         scenes.append((angles, _base_tf(float(rng.uniform(-0.4, 0.4)))))
     pts = [_markers(model, a, b) for a, b in scenes]
-    body_center = np.array([-60.0, -40.0, 130.0])
     all_pts = np.concatenate(pts)
-    lo = np.minimum(all_pts.min(0) - 40, body_center - 75)
-    hi = np.maximum(all_pts.max(0) + 40, body_center + 75)
+    lo = np.minimum(all_pts.min(0) - 40, BODY_CENTER - 75)
+    hi = np.maximum(all_pts.max(0) + 40, BODY_CENTER + 75)
     lps_lo = np.array([-hi[0], -hi[1], lo[2]], dtype=np.float32)
     lps_hi = np.array([-lo[0], -lo[1], hi[2]], dtype=np.float32)
     ext = lps_hi - lps_lo
@@ -234,11 +260,18 @@ def bench_scene(model, shape):
         spacing = np.full(3, float(ext.max()) / shape[0], dtype=np.float32)  # bench.py's grid
     else:
         spacing = (ext / np.asarray(shape, dtype=np.float32)).astype(np.float32)
-    vol = synthetic_volume(
-        shape=shape, spacing=spacing, origin=lps_lo, fiducials_ras=pts[0],
-        fiducial_radius_mm=4.0, body_center_ras=body_center, body_radii_mm=[45.0, 55.0, 65.0],
-    )
-    return vol, scenes[0][1]
+    return [
+        (synthetic_volume(shape=shape, spacing=spacing, origin=lps_lo, fiducials_ras=p, fiducial_radius_mm=4.0,
+                          body_center_ras=BODY_CENTER, body_radii_mm=[45.0, 55.0, 65.0]), a, b)
+        for p, (a, b) in list(zip(pts, scenes))[:count]
+    ]
+
+
+def bench_scene(model, shape):
+    """bench.py's canonical scene (its first of 4, with the union bounding
+    box of all 4) rendered into `shape`: (volume, base transform)."""
+    vol, _, base = bench_scenes(model, shape, count=1)[0]
+    return vol, base
 
 
 def test_scene(model, spacing):
@@ -246,16 +279,15 @@ def test_scene(model, spacing):
     from mamri_tpu_torch.perception.volume import synthetic_volume
 
     pts = _markers(model, TRUE_ANGLES, _base_tf(0.15))
-    body_center = np.array([-60.0, -40.0, 130.0])
-    lo = np.minimum(pts.min(0) - 40, body_center - 75)
-    hi = np.maximum(pts.max(0) + 40, body_center + 75)
+    lo = np.minimum(pts.min(0) - 40, BODY_CENTER - 75)
+    hi = np.maximum(pts.max(0) + 40, BODY_CENTER + 75)
     lps_lo = np.array([-hi[0], -hi[1], lo[2]])
     lps_hi = np.array([-lo[0], -lo[1], hi[2]])
     sp = np.array([spacing] * 3, dtype=np.float32)
     shape = tuple(int(np.ceil(e)) for e in (lps_hi - lps_lo) / sp)
     return synthetic_volume(
         shape=shape, spacing=sp, origin=lps_lo, fiducials_ras=pts, fiducial_radius_mm=4.0,
-        body_center_ras=body_center, body_radii_mm=[45.0, 55.0, 65.0],
+        body_center_ras=BODY_CENTER, body_radii_mm=[45.0, 55.0, 65.0],
     )
 
 
@@ -325,7 +357,11 @@ def compare_kernels(data_np, label, card, failures, timings):
         got, want = fn(*make_args()), plain(*make_args())
         record(name, got, want, fn, plain, make_args, nbytes, nops, variant)
         if split:
-            shown = ", ".join(f"{kernel} {us:.1f}" for kernel, us in launch_split(fn, make_args))
+            parts, sessions = launch_split(fn, make_args)
+            shown = (f"not measured (torch.profiler recorded no device activity in {sessions} sessions)"
+                     if parts is None else ", ".join(f"{kernel} {us:.1f}" for kernel, us in parts))
+            if parts is not None and sessions > 1:
+                shown += f" (profiled in session {sessions}: the earlier ones recorded no device activity)"
             print(f"launches {label} {name}{f'[{variant}]' if variant else ''}, device us each: {shown}")
         return got
 
@@ -546,12 +582,15 @@ NONFUSED_PATH_KERNELS = ("reset_distances", "run_min", "check", "component_stats
 def read_path_counts(gpu_ops, required, label):
     """The launch counts of the path just driven; each required kernel must
     have launched in it."""
-    counts = dict(gpu_ops.LAUNCHES)
-    missing = [n for n in required if counts[n] == 0]
+    return read_tally(dict(gpu_ops.LAUNCHES), required, label)
+
+
+def read_tally(tally, required, label):
+    missing = [n for n in required if tally.get(n, 0) == 0]
     if missing:
-        raise AssertionError(f"{label}: kernels never launched: {missing} ({counts})")
-    print(f"{label} launches: {counts}")
-    return counts
+        raise AssertionError(f"{label}: kernels never launched: {missing} ({tally})")
+    print(f"{label} launches: {tally}")
+    return tally
 
 
 def time_estimates(engine, vol, label, card):
@@ -575,26 +614,10 @@ def report_host_syncs(engine, vol):
     and fails if one comes from `api/engine.py`. `_fetch`'s one wait per
     attempt is a CUDA event's, which the mode does not report (it flags
     synchronizing copies and stream or device synchronizations)."""
-    import warnings
-
-    import torch
-
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            engine.current_angles = np.zeros(6, np.float32)
-            res = engine.estimate_pose(vol)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    engine.current_angles = np.zeros(6, np.float32)
+    res, where = syncs_in(lambda: engine.estimate_pose(vol))
     check_pose(engine, res, TRUE_ANGLES, "sync-debug 256^3")
-    where = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            at = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
-            where[at] = where.get(at, 0) + 1
-    print(f"host syncs in one warm estimate_pose at 256^3: {sum(where.values())} "
-          f"{json.dumps(dict(sorted(where.items(), key=lambda kv: -kv[1])))}")
+    print(f"host syncs in one warm estimate_pose at 256^3: {sum(where.values())} {json.dumps(where)}")
     engine_syncs = [at for at in where if at.startswith("mamri_tpu_torch/api/engine.py")]
     if engine_syncs:
         raise AssertionError(f"api/engine.py synchronizes outside _fetch's wait: {engine_syncs}")
@@ -609,6 +632,278 @@ def cold_warm(engine, vol, label, card):
         ms.append((time.perf_counter() - t0) * 1e3)
         check_pose(engine, res, TRUE_ANGLES, label)
     print(f"estimate_pose {label} cold_ms={ms[0]:.3f} warm_ms={ms[1]:.3f} ({card})")
+
+
+# ------------------------------------------------- phase 8: batch and async
+def check_estimate(res, truth, label, rmse_max=0.5):
+    """check_pose's criteria on a PoseEstimate alone (the async path keeps
+    no segmentation; collect returns only certified results)."""
+    j1_err_deg = float(np.degrees(abs(res.angles_rad[0] - truth[0]))) if res.success else float("nan")
+    print(f"{label}: success={res.success} markers={res.markers_found} rmse_mm={res.rmse_mm} J1_err_deg={j1_err_deg}")
+    if not (res.success and all(res.markers_found.values()) and res.rmse_mm < rmse_max and j1_err_deg < 1.0):
+        raise AssertionError(f"{label}: pose check failed ({res.message})")
+
+
+def check_row(out, row, truth, label, rmse_max=0.5):
+    """check_pose's criteria on one row of an `estimate_pose_batch` result."""
+    certs = {k: bool(out[k][row]) for k in ("seg_converged", "roots_complete", "blobs_complete")}
+    j1_err_deg = float(np.degrees(abs(out["angles"][row][0] - truth[0])))
+    rmse = float(out["rmse"][row])
+    print(f"{label}: success={bool(out['success'][row])} markers={out['markers_found'][row].tolist()} "
+          f"rmse_mm={rmse} J1_err_deg={j1_err_deg} certificates={certs} "
+          f"num_components={int(out['num_components'][row])}")
+    if not (bool(out["success"][row]) and out["markers_found"][row].all() and all(certs.values())):
+        raise AssertionError(f"{label}: not solved and certified")
+    if not (rmse < rmse_max and j1_err_deg < 1.0):
+        raise AssertionError(f"{label}: RMSE {rmse} mm (limit {rmse_max}), |J1 - truth| {j1_err_deg} deg")
+
+
+def rows_equal_singles(out, datas, spacing, origin, label):
+    """Each batch row equals, exactly, `estimate_pose` of its volume on a
+    fresh engine on the card (no saved baseplate, zero current angles).
+    Returns the kernel launches of those single calls, summed."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.perception.volume import Volume
+
+    singles = {}
+    for row, data in enumerate(datas):
+        eng = MamriEngine(device="cuda")
+        with_counts(gpu_ops, singles, eng.estimate_pose, Volume(data, spacing, origin))
+        for k, v in out.items():
+            if not np.array_equal(v[row], eng.last_segmentation[k]):
+                raise AssertionError(f"{label} row {row}: {k} = {v[row]}, estimate_pose gave {eng.last_segmentation[k]}")
+    print(f"{label}: every row equals estimate_pose of its volume on the card, exactly")
+    return singles
+
+
+def with_counts(gpu_ops, tally, fn, *args, **kw):
+    """fn(*args, **kw), adding the kernel launches it made to `tally`."""
+    before = dict(gpu_ops.LAUNCHES)
+    result = fn(*args, **kw)
+    for k, v in gpu_ops.LAUNCHES.items():
+        tally[k] = tally.get(k, 0) + v - before[k]
+    return result
+
+
+def p50_ms(fn, reps=REPS):
+    """(p50, all) of `reps` calls of fn() by the host clock, each ending in a
+    synchronize; one warm-up call first."""
+    import torch
+
+    fn()
+    lat = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat)), [round(x, 3) for x in lat]
+
+
+def syncs_in(fn):
+    """(fn(), {file:line: times}) of the synchronizing calls that torch's
+    sync debug mode reports while fn runs."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[at] = where.get(at, 0) + 1
+    return result, dict(sorted(where.items(), key=lambda kv: -kv[1]))
+
+
+def phase_batch_async(model, card, paths):
+    """bench.py's four 256^3 scenes as one batch, a batch with one noisy
+    volume, and three frames through the async pair."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.perception.volume import Volume
+
+    scenes = bench_scenes(model, (256, 256, 256))
+    spacing, origin = scenes[0][0].spacing, scenes[0][0].origin
+    datas = [np.asarray(v.data) for v, _, _ in scenes]
+    batch = np.stack(datas)
+    engine = MamriEngine(device="cuda")
+    tally = {}
+    with_counts(gpu_ops, tally, engine.estimate_pose_batch, batch, spacing, origin)  # warm-up
+    once = {}
+    out = with_counts(gpu_ops, once, engine.estimate_pose_batch, batch, spacing, origin)
+    for k, v in once.items():
+        tally[k] += v
+    for row, (_, truth, _) in enumerate(scenes):
+        check_row(out, row, truth, f"batch 256^3 row {row}")
+    singles = rows_equal_singles(out, datas, spacing, origin, "batch 256^3")
+    print(f"launches per estimate_pose_batch of {len(datas)} at 256^3: {once} (its {len(datas)} volumes' "
+          f"estimate_pose calls: {singles})")
+    if once != singles:
+        raise AssertionError("the batch did not launch the kernels of one estimate_pose per volume")
+
+    def batch_call():
+        with_counts(gpu_ops, tally, engine.estimate_pose_batch, batch, spacing, origin)
+
+    def sequential():
+        for data in datas:
+            engine.estimate_pose(Volume(data, spacing, origin), store_state=False, keep_segmentation=False)
+
+    b_p50, b_all = p50_ms(batch_call)
+    s_p50, s_all = p50_ms(sequential)
+    print(f"estimate_pose_batch B={len(datas)} 256^3 p50_ms={b_p50:.3f} all_ms={b_all}; {len(datas)} sequential "
+          f"estimate_pose p50_ms={s_p50:.3f} all_ms={s_all}; per volume {b_p50 / len(datas):.3f} vs "
+          f"{s_p50 / len(datas):.3f} ({card})")
+
+    # one noisy volume (bench.py's 1500 speckles + N(0, 5)) among clean ones: only it escalates
+    rng = np.random.default_rng(5)
+    noisy = datas[0].copy()
+    bright = noisy > 60.0
+    for i, j, k in rng.integers(2, noisy.shape[0] - 2, size=(1500, 3)):  # bench.py: 2 .. SIZE - 2
+        if not bright[i - 2:i + 3, j - 2:j + 3, k - 2:k + 3].any():
+            noisy[i, j, k] = 100.0
+    noisy = noisy + rng.normal(0.0, 5.0, noisy.shape).astype(np.float32)
+    mixed = [datas[1], noisy, datas[2]]
+    log = logging.getLogger("mamri_tpu_torch.api.engine")
+    esc = _Escalations()
+    log.addHandler(esc)
+    try:
+        t0 = time.perf_counter()
+        out = with_counts(gpu_ops, tally, engine.estimate_pose_batch, np.stack(mixed), spacing, origin)
+        mixed_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        log.removeHandler(esc)
+    print(f"noisy batch: {esc.messages} in {mixed_ms:.3f} ms ({card})")
+    if not esc.messages or not all("escalation for 1/3 volumes" in m for m in esc.messages):
+        raise AssertionError(f"noisy batch: expected escalations of the noisy row only, got {esc.messages}")
+    for row, truth, rmse_max in ((0, scenes[1][1], 0.5), (1, TRUE_ANGLES, 1.5), (2, scenes[2][1], 0.5)):
+        check_row(out, row, truth, f"noisy batch row {row}", rmse_max)
+    rows_equal_singles(out, mixed, spacing, origin, "noisy batch")
+    paths["estimate_batch"] = read_tally(tally, DEFAULT_PATH_KERNELS, "batch path")
+
+    # three frames dispatched and collected, against the synchronous path on its own engine
+    tally = {}
+    frames = [Volume(d, spacing, origin) for d in datas[:3]]
+    sync_eng, async_eng = MamriEngine(device="cuda"), MamriEngine(device="cuda")
+    sync_eng.estimate_pose(frames[0], keep_segmentation=False)  # warm-up
+    async_eng.estimate_pose_collect(async_eng.estimate_pose_async(frames[0]))
+    sync_eng.current_angles = np.zeros(6, np.float32)
+    async_eng.current_angles = np.zeros(6, np.float32)
+    for i, (frame, (_, truth, _)) in enumerate(zip(frames, scenes)):
+        want = sync_eng.estimate_pose(frame, keep_segmentation=False)
+        t0 = time.perf_counter()
+        handle, where = syncs_in(lambda: with_counts(gpu_ops, tally, async_eng.estimate_pose_async, frame))
+        t1 = time.perf_counter()
+        got = with_counts(gpu_ops, tally, async_eng.estimate_pose_collect, handle)
+        t2 = time.perf_counter()
+        print(f"async frame {i}: dispatch_ms={(t1 - t0) * 1e3:.3f} collect_ms={(t2 - t1) * 1e3:.3f} "
+              f"host syncs under dispatch: {sum(where.values())} {json.dumps(where)} ({card})")
+        check_estimate(got, truth, f"async frame {i}")
+        for field in ("angles_rad", "steps", "baseplate_tf"):
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"async frame {i}: {field} {getattr(got, field)} != sync {getattr(want, field)}")
+        if (got.rmse_mm, got.markers_found, got.num_blobs) != (want.rmse_mm, want.markers_found, want.num_blobs):
+            raise AssertionError(f"async frame {i}: differs from the synchronous path")
+    print("async frames: each equals the synchronous estimate_pose, exactly")
+    paths["estimate_async"] = read_tally(tally, DEFAULT_PATH_KERNELS[:-1], "async path")
+
+
+# ------------------------------------------------------ phase 9: planning
+def phase_planning(vol, card):
+    """Entry search, goal IK, a sweep of 3 distances, the heuristic path and
+    the exact validation on the bench scene at 256^3: on the card, timed,
+    and held against a CPU engine carrying the same state."""
+    import torch
+    from mamri_tpu_torch.api.engine import MamriEngine
+
+    gpu = MamriEngine(device="cuda")
+    est = gpu.estimate_pose(vol)
+    check_pose(gpu, est, TRUE_ANGLES, "planning scan 256^3")
+    cpu = MamriEngine(device="cpu")
+    cpu.load_state_from_numpy(baseplate_tf=gpu.baseplate_tf, current_angles=gpu.current_angles)
+    cpu.set_body_segmentation(gpu.body_mask(), *gpu.last_volume_geom)
+
+    def build_world():
+        gpu._drop_body_world()
+        gpu._require_body_world()
+
+    world_p50, world_all = p50_ms(build_world)
+    gw, cw = gpu._require_body_world(), cpu._require_body_world()
+    if not (torch.equal(gw.occupancy.cpu(), cw.occupancy) and torch.equal(gw.inside_depth.cpu(), cw.inside_depth)):
+        raise AssertionError("collision world on the card differs from the CPU's")
+    print(f"planning build_collision_world 256^3 (upload of the mask included) p50_ms={world_p50:.3f} "
+          f"all_ms={world_all}; equal to the CPU's ({card})")
+
+    def close(a, b, what, atol=1e-3):
+        gap = float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+        if not gap <= atol:
+            raise AssertionError(f"planning {what}: card and CPU differ by {gap} (limit {atol})")
+        return gap
+
+    def equal(a, b, what):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"planning {what}: card {a} != CPU {b}")
+
+    calls = {}
+    entry = gpu.find_entry_point(BODY_CENTER)
+    c_entry = cpu.find_entry_point(BODY_CENTER)
+    equal(entry.point_ras, c_entry.point_ras, "entry point")
+    equal(entry.found, c_entry.found, "entry found")
+    close(entry.normal_ras, c_entry.normal_ras, "entry normal", 1e-5)
+    if not bool(entry.found):
+        raise AssertionError("planning: no entry point found")
+    calls["find_entry_point"] = p50_ms(lambda: gpu.find_entry_point(BODY_CENTER))
+    ep = entry.point_ras
+
+    def same_goal(g, c, what):
+        for f in ("success", "collides"):
+            equal(getattr(g, f), getattr(c, f), f"{what} {f}")
+        close(g.position_error_mm, c.position_error_mm, f"{what} position error", 1e-2)
+        return close(g.angles, c.angles, f"{what} angles")
+
+    goal, c_goal = gpu.plan_trajectory(BODY_CENTER, ep), cpu.plan_trajectory(BODY_CENTER, ep)
+    gaps = {"plan_trajectory": same_goal(goal, c_goal, "plan_trajectory")}
+    if not bool(goal.success):
+        raise AssertionError("planning: plan_trajectory found no collision-free goal")
+    calls["plan_trajectory"] = p50_ms(lambda: gpu.plan_trajectory(BODY_CENTER, ep))
+
+    distances = [2.0, 5.0, 10.0]
+    sweep, c_sweep = gpu.plan_trajectory_sweep(BODY_CENTER, ep, distances), cpu.plan_trajectory_sweep(BODY_CENTER, ep,
+                                                                                                     distances)
+    gaps["plan_trajectory_sweep"] = same_goal(sweep, c_sweep, "sweep")
+    calls["plan_trajectory_sweep(3)"] = p50_ms(lambda: gpu.plan_trajectory_sweep(BODY_CENTER, ep, distances))
+
+    plan = gpu.plan_heuristic_path(BODY_CENTER, ep, 5.0, start_pose_steps=est.steps)
+    c_plan = cpu.plan_heuristic_path(BODY_CENTER, ep, 5.0, start_pose_steps=est.steps)
+    equal(plan.success, c_plan.success, "heuristic path success")
+    if not plan.success:
+        raise AssertionError(f"planning: plan_heuristic_path failed: {plan.message}")
+    equal(plan.collision_detected, c_plan.collision_detected, "heuristic path collision flag")
+    gaps["plan_heuristic_path"] = max(close(plan.goal_angles, c_plan.goal_angles, "heuristic goal"),
+                                      close(plan.keyframes, c_plan.keyframes, "keyframes"),
+                                      close(plan.path, c_plan.path, "path"))
+    calls["plan_heuristic_path(100)"] = p50_ms(
+        lambda: gpu.plan_heuristic_path(BODY_CENTER, ep, 5.0, start_pose_steps=est.steps))
+
+    exact, c_exact = gpu.validate_plan_exact(plan), cpu.validate_plan_exact(plan)  # one path, both engines
+    for k in exact:
+        equal(exact[k], c_exact[k], f"validate_plan_exact {k}")
+    calls["validate_plan_exact"] = p50_ms(lambda: gpu.validate_plan_exact(plan))
+
+    print(f"planning entry={entry.point_ras.tolist()} goal success={bool(goal.success)} "
+          f"position_error_mm={float(goal.position_error_mm)} sweep position_error_mm="
+          f"{sweep.position_error_mm.tolist()} path collision={plan.collision_detected} exact collision_free="
+          f"{exact['collision_free']} max |card - CPU| rad: {json.dumps(gaps)}")
+    for name, (p50, all_ms) in calls.items():
+        print(f"planning {name} 256^3 p50_ms={p50:.3f} all_ms={all_ms} ({card})")
 
 
 def main() -> int:
@@ -730,6 +1025,12 @@ def main() -> int:
         if not rep["all_exact"]:
             raise AssertionError(f"parity size {size} failed: {json.dumps(rep)}")
     paths["parity"] = read_path_counts(gpu_ops, tuple(KERNELS), "parity harness")
+
+    # ---- phase 8: batch and async at 256^3
+    phase_batch_async(model, card, paths)
+
+    # ---- phase 9: planning on the bench scene at 256^3 (no kernel runs on this path)
+    phase_planning(vol256, card)
 
     main_t = timings["256^3"]
     kernels = []

@@ -1,9 +1,11 @@
-"""mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu's scan -> pose path.
+"""mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu's scan -> pose path
+and its planning layer.
 
 `mamri_tpu` (JAX/Pallas) stays the reference; this package is held against
 it on identical inputs. It imports torch and numpy, never jax, and nothing
 of `mamri_tpu`: it keeps its own copies of what it needs from there
-(`api/types.py`, `resources/mamri_arm.json`, `perception/volume.py`).
+(`api/types.py`, `resources/mamri_arm.json`, `perception/volume.py`,
+`utils/stl.py`).
 
 Layering mirrors `mamri_tpu`:
   core/          4x4 algebra, robot model + FK, unit conversion
@@ -11,7 +13,10 @@ Layering mirrors `mamri_tpu`:
                  (`gpu_ops`, sources in `csrc/`) with their plain twins
   registration/  L-shape triplet matching + Horn/Kabsch rigid fit
   ik/            batched bounded Levenberg-Marquardt, full-chain pose IK
-  api/           MamriEngine (estimate_pose)
+  planning/      collision world, entry search, trajectory goal IK,
+                 heuristic path, exact validation
+  utils/         STL ingest and surface sampling
+  api/           MamriEngine (single, batched and async estimation, planning)
 
 Geometry runs in strict float32 on the card: both TF32 switches are turned
 off when the package is imported, for the reason the JAX package pins

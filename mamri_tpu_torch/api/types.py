@@ -1,7 +1,8 @@
 """Public result types of the port's MamriEngine.
 
-The port's own copy of `PoseEstimate` (mamri_tpu/api/types.py:11-25): the
-same fields, defaults and order, so results read the same in both packages.
+The port's own copies of `PoseEstimate` and `TrajectoryPlan`
+(mamri_tpu/api/types.py:11-25, 43-54): the same fields, defaults and order,
+so results read the same in both packages.
 """
 
 from __future__ import annotations
@@ -24,4 +25,19 @@ class PoseEstimate:
     baseplate_source: str = "none"  # "detected" | "saved" | "saved_fallback" | "none"
     markers_found: Dict[str, bool] = field(default_factory=dict)
     num_blobs: int = 0
+    message: str = ""
+
+
+@dataclass
+class TrajectoryPlan:
+    """Output of `MamriEngine.plan_heuristic_path`: the reference's
+    `(path, keyframes, collision_detected)` triple and the goal."""
+
+    success: bool
+    path: Optional[np.ndarray] = None  # (P, 6) angles
+    keyframes: Optional[np.ndarray] = None  # (4, 6)
+    collision_detected: bool = False
+    goal_angles: Optional[np.ndarray] = None  # (6,)
+    goal_steps: Optional[np.ndarray] = None
+    position_error_mm: Optional[float] = None
     message: str = ""

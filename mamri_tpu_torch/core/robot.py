@@ -12,6 +12,7 @@ written without in-place writes, so it runs under `torch.func.vmap`/`jacfwd`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -64,6 +65,11 @@ class RobotModel:
     @property
     def device(self) -> torch.device:
         return self.fixed_offsets.device
+
+    @functools.cached_property
+    def fixed_offsets_host(self) -> np.ndarray:
+        """(L, 4, 4) float64 host copy of `fixed_offsets`, read once."""
+        return self.fixed_offsets.cpu().numpy().astype(np.float64)
 
     @property
     def num_joints(self) -> int:
@@ -210,6 +216,37 @@ def fk_all_links(model: RobotModel, angles, base_tf=None):
             local = model.fixed_offsets[i]
         world.append(parent_tf @ local)
     return torch.stack(world, dim=0)
+
+
+def fk_all_links_host(model: RobotModel, angles, base_tf=None) -> np.ndarray:
+    """Host-numpy float64 twin of `fk_all_links`, for per-tick and per-frame
+    paths that must not wait on a device (port of the reference's
+    `fk_all_links_host`); the articulations are those of
+    `transforms.articulation_matrix`."""
+    angles = np.asarray(angles, dtype=np.float64).reshape(-1)
+    if angles.shape[0] != model.num_joints:
+        raise ValueError(f"angles must have shape ({model.num_joints},), got {angles.shape}")
+    base = np.eye(4) if base_tf is None else np.asarray(base_tf, dtype=np.float64)
+    offsets = model.fixed_offsets_host
+    world: List[np.ndarray] = []
+    for i, spec in enumerate(model.specs):
+        parent = base if spec.parent < 0 else world[spec.parent]
+        local = offsets[i]
+        if spec.joint_index >= 0:
+            t = angles[spec.joint_index]
+            c, s = np.cos(t), np.sin(t)
+            art = np.eye(4)
+            if spec.axis_code == transforms.AXIS_IS:  # RotZ(+t)
+                art[:2, :2] = [[c, -s], [s, c]]
+            elif spec.axis_code == transforms.AXIS_PA:  # RotY(-t)
+                art[0, 0] = art[2, 2] = c
+                art[0, 2] = -s
+                art[2, 0] = s
+            elif spec.axis_code == transforms.AXIS_LR:  # RotX(+t)
+                art[1:3, 1:3] = [[c, -s], [s, c]]
+            local = local @ art
+        world.append(parent @ local)
+    return np.stack(world, axis=0)
 
 
 def fk_link(model: RobotModel, angles, link_name: str, base_tf=None):

@@ -74,3 +74,17 @@ def least_squares_lm(
     jac, r = jac_and_res(x)
     g = (jac.transpose(-1, -2) @ r[..., None])[..., 0]
     return LMResult(x=x, cost=c, grad_norm=torch.linalg.norm(g, dim=-1), iterations=accepted)
+
+
+def multistart_lm(residual_fn, guesses, lower, upper, **kw):
+    """(LMResult of the best guess, its index): LM from each of the (G, n)
+    `guesses`, the lowest final cost kept (`torch.argmin` takes the first of
+    equal costs, as `jnp.argmin` does)."""
+    results = least_squares_lm(residual_fn, guesses, lower, upper, **kw)
+    best = torch.argmin(results.cost)
+    return LMResult(
+        x=results.x[best],
+        cost=results.cost[best],
+        grad_norm=results.grad_norm[best],
+        iterations=results.iterations[best],
+    ), best

@@ -1,4 +1,5 @@
-"""Full-chain pose IK (port of `mamri_tpu/ik/residuals.py`, estimate path).
+"""Full-chain pose IK and the trajectory residual (port of
+`mamri_tpu/ik/residuals.py`).
 
 `full_chain_residual` is the reference's `_full_chain_ik_error_function`:
 9 Joint6 marker errors (optionally with the 180-degree Z correction of the
@@ -6,7 +7,8 @@ Joint6 local frame) and a Joint4 block weighted 0.05 when Joint4 was found,
 0 otherwise. `solve_full_chain_ik` polishes {current pose, zero pose}, the 8
 closed-form branches and optional random restarts with batched LM, then
 scores by (cost, Joint2 evidence, distance to the current pose) and picks
-the Joint6 winding nearest the current pose.
+the Joint6 winding nearest the current pose. `trajectory_pose_residual`
+is the needle tip position + direction residual of the trajectory goal IK.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from mamri_tpu_torch.ik.analytic import analytic_ik_seeds, chain_is_analytic, jo
 from mamri_tpu_torch.ik.lm import least_squares_lm
 
 JOINT4_WEIGHT = 0.05
+ORIENTATION_WEIGHT = 50.0
 
 
 class FullChainIKResult(NamedTuple):
@@ -59,6 +62,24 @@ def full_chain_residual(
     pred4 = transforms.apply(tfs[idx4], model.marker_local[idx4])
     e4 = (w4 * (pred4 - joint4_targets)).reshape(-1)
     return torch.cat([e6, e4])
+
+
+def trajectory_pose_residual(model: RobotModel, angles, base_tf, target_tf, orientation_weight: float = ORIENTATION_WEIGHT):
+    """(6,) needle position + orientation residual for the trajectory IK."""
+    needle = fk_all_links(model, angles, base_tf)[model.link_index("Needle")]
+    pos_err = needle[:3, 3] - target_tf[:3, 3]
+    actual_needle_dir = -needle[:3, 0]
+    orient_err = orientation_weight * (target_tf[:3, 0] - actual_needle_dir)
+    return torch.cat([pos_err, orient_err])
+
+
+def random_restart_guesses(model: RobotModel, count: int, seed: int):
+    """(count, J) guesses uniform in 0.8 x the joint limits, drawn from a CPU
+    `torch.Generator` seeded with `seed`: the same guesses on every device."""
+    lower, upper = model.limits_rad[:, 0], model.limits_rad[:, 1]
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((count, model.num_joints), generator=gen).to(model.device)
+    return lower * 0.8 + u * (upper * 0.8 - lower * 0.8)
 
 
 def solve_full_chain_ik(
@@ -98,9 +119,7 @@ def solve_full_chain_ik(
     if restart_guesses is not None:
         guesses.append(restart_guesses.to(device=dev, dtype=torch.float32))
     elif num_random_restarts > 0:
-        gen = torch.Generator().manual_seed(restart_seed)
-        u = torch.rand((num_random_restarts, nj), generator=gen).to(dev)
-        guesses.append(lower * 0.8 + u * (upper * 0.8 - lower * 0.8))
+        guesses.append(random_restart_guesses(model, num_random_restarts, restart_seed))
     guesses = torch.cat(guesses)
 
     def res(x):

@@ -123,3 +123,39 @@ def test_volume_keeps_compact_dtypes():
     v = tvolume.Volume(data, (1, 1, 1), (0, 0, 0))
     assert v.data.dtype == np.dtype("int16") and v.shape == (2, 3, 4)
     assert tvolume.Volume(data.astype(np.float64), (1, 1, 1), (0, 0, 0)).data.dtype == np.float32
+
+
+def test_host_conversions_bit_equal(models):
+    """The host twins of the step conversions and the torch
+    `steps_to_angles` against mamri_tpu's."""
+    from mamri_tpu.core import units as junits
+    from mamri_tpu_torch.core import units as tunits
+
+    jm, tm = models
+    rng = np.random.default_rng(7)
+    a = rng.uniform(-4.0, 4.0, (256, 6)).astype(np.float32)
+    steps = rng.integers(-5000, 5000, (256, 6)).astype(np.int32)
+    spr = np.asarray(jm.steps_per_rev)
+    np.testing.assert_array_equal(tunits.angles_to_steps_host(a, spr), junits.angles_to_steps_host(a, spr))
+    np.testing.assert_array_equal(tunits.steps_to_angles_host(steps, spr), junits.steps_to_angles_host(steps, spr))
+    got = tunits.steps_to_angles(torch.as_tensor(steps), tm.steps_per_rev)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(junits.steps_to_angles(jnp.asarray(steps), jm.steps_per_rev)))
+
+
+def test_host_fk_matches_jax(models):
+    """`fk_all_links_host` (float64 numpy) against mamri_tpu's twin, and
+    within 1e-3 mm of the port's device FK."""
+    jm, tm = models
+    rng = np.random.default_rng(8)
+    limits = np.asarray(jm.limits_rad)
+    base = np.asarray(jT.translate(jnp.asarray([-60.0, -120.0, 5.0])) @ jT.rot_x(-np.pi / 2)).astype(np.float32)
+    for _ in range(6):
+        a = rng.uniform(limits[:, 0], limits[:, 1]).astype(np.float32)
+        got = trobot.fk_all_links_host(tm, a, base)
+        assert got.dtype == np.float64
+        np.testing.assert_allclose(got, jrobot.fk_all_links_host(jm, a, base), rtol=0, atol=1e-9)
+        device = trobot.fk_all_links(tm, torch.as_tensor(a), torch.as_tensor(base)).numpy()
+        np.testing.assert_allclose(got, device, atol=1e-3)
+    with pytest.raises(ValueError):
+        trobot.fk_all_links_host(tm, np.zeros(5))

@@ -366,8 +366,9 @@ def test_fetch_equals_per_key_copies(scene):
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port's package, engine, kernels'
-    module and parity harness import, a CPU `estimate_pose` solves a scene,
-    and no module of jax or of the JAX package `mamri_tpu` was loaded."""
+    module, parity harness and planning layer import, a CPU `estimate_pose`
+    solves a scene and a CPU `plan_trajectory` a needle goal, and no module
+    of jax or of the JAX package `mamri_tpu` was loaded."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -392,6 +393,9 @@ def test_port_imports_without_jax():
         "assert res.success and all(res.markers_found.values()), res\n"
         "assert float(abs(res.angles_rad[0] - 0.3)) < 0.02, res.angles_rad\n"
         "assert type(res).__module__ == 'mamri_tpu_torch.api.types'\n"
+        "import mamri_tpu_torch.planning, mamri_tpu_torch.planning.exact, mamri_tpu_torch.utils.stl\n"
+        "goal = e.plan_trajectory(pts[-1] + np.float32(30.0), pts[-1])\n"
+        "assert goal.angles.shape == (6,) and np.isfinite(goal.angles).all() and goal.position_error_mm < 1.0, goal\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in loaded)\n"
         "assert not any(m == 'mamri_tpu' or m.startswith('mamri_tpu.') for m in loaded), loaded\n"

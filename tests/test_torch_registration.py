@@ -100,3 +100,28 @@ def test_lm_matches_jax_per_guess():
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=2e-4)
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=1e-3, atol=1e-6)
     assert (got.x[:, 2] >= 0.5).all()
+
+
+def test_multistart_lm_matches_jax():
+    """The best of several LM runs (and its index) against JAX's
+    `multistart_lm` on the same guesses."""
+    from mamri_tpu.ik.lm import multistart_lm as j_multi
+    from mamri_tpu_torch.ik.lm import multistart_lm as t_multi
+
+    t = np.linspace(0, 1, 10).astype(np.float32)
+    y = (1.5 * np.sin(2.0 * t) + 0.2).astype(np.float32)
+    lower, upper = np.array([-3.0, 0.1, -1.0], np.float32), np.array([3.0, 4.0, 1.0], np.float32)
+    guesses = np.array([[-2.5, 3.5, 0.9], [1.0, 1.0, 0.0], [2.9, 0.2, -0.9]], np.float32)
+
+    def j_res(p):
+        return p[0] * jnp.sin(p[1] * jnp.asarray(t)) + p[2] - jnp.asarray(y)
+
+    def t_res(p):
+        return p[0] * torch.sin(p[1] * torch.as_tensor(t)) + p[2] - torch.as_tensor(y)
+
+    want, j_best = j_multi(j_res, jnp.asarray(guesses), jnp.asarray(lower), jnp.asarray(upper), num_iters=25)
+    got, t_best = t_multi(t_res, torch.as_tensor(guesses), torch.as_tensor(lower), torch.as_tensor(upper),
+                          num_iters=25)
+    assert int(t_best) == int(j_best)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=2e-4)
+    np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-3, atol=1e-6)
