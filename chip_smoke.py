@@ -67,8 +67,25 @@
    steps) and `validate_plan_exact`, each p50 of 5 on the card, and each held
    against the same call of a `device="cpu"` engine carrying the same state:
    the world and entry point equal, flags equal, angles within 1e-3 rad.
+10. A stream from disk on the clinical grid (512x512x192, phase 5's): the
+   bench scene at the poses a0 + 0.02 k, k = 0..3, written as int16 raw
+   NRRD (frame 0 also as a DICOM series and as NIfTI) by the port's writers
+   into a temporary directory under `build/`, each file read back by
+   `load_volume` equal to what was written (ms per format printed; whether
+   the native host library was built, printed too). Then `PoseTracker`:
+   synchronous on the full frames, ROI (40 mm; 3 ROI frames, no fallback,
+   angles within 0.2 deg of the full frames'), a pose jump past a 25 mm
+   window (the same step falls back to the full frame), pipelined depth 1
+   (within 1e-4 rad of the synchronous result with the host frame
+   overwritten as soon as `step` returns; then the 4 frames), re-planning
+   on the 256^3 bench scene (`replan_every=2` over 2 frames: one plan),
+   int16 against float32 (bit-equal), and one stream frame's launches
+   against one `estimate_pose`'s, full and ROI. Frame p50 per mode, the
+   upload of a float32 frame, an int16 frame and the ROI window, and the
+   engine tracer's report are printed. After the path's counts are read,
+   every kernel is held against its twin at the frozen ROI window's shape.
 
-Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames) runs
+Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10) runs
 with the launch counts set to 0 just before it and read just after it (for
 phase 8, the launches of its own calls are tallied); every kernel of a path
 must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
@@ -906,6 +923,225 @@ def phase_planning(vol, card):
         print(f"planning {name} 256^3 p50_ms={p50:.3f} all_ms={all_ms} ({card})")
 
 
+# ------------------------------------------- phase 10: stream from disk
+STREAM_DEPTH = 4  # frames of the pose sequence a0 + 0.02 k, k = 0..3 (tests/test_streaming_roi.py:58-60)
+JUMP = np.array([0.7, 0.3, -0.4, 0.3, 0.3, 0.5], dtype=np.float32)  # tests/test_streaming_roi.py's pose jump
+
+
+def paint_spheres(background, spacing, origin, pts, radius=4.0, value=120.0):
+    """`background` with a sphere of `value` at each RAS point, painted on
+    the sphere's own sub-grid with `synthetic_volume`'s float32 arithmetic,
+    so a frame equals `synthetic_volume`'s rendering of the same scene."""
+    data = background.copy()
+    for c in np.asarray(pts, np.float32).reshape(-1, 3):
+        idx = (np.array([-c[0], -c[1], c[2]], np.float64) - origin) / spacing
+        lo = np.maximum(np.floor(idx - radius / spacing).astype(int) - 1, 0)
+        hi = np.minimum(np.ceil(idx + radius / spacing).astype(int) + 2, data.shape)
+        gi, gj, gk = np.meshgrid(*(np.arange(a, b, dtype=np.float32) for a, b in zip(lo, hi)), indexing="ij")
+        rx = -(origin[0] + spacing[0] * gi)
+        ry = -(origin[1] + spacing[1] * gj)
+        rz = origin[2] + spacing[2] * gk
+        d2 = (rx - c[0]) ** 2 + (ry - c[1]) ** 2 + (rz - c[2]) ** 2
+        data[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]][d2 <= radius ** 2] = value
+    return data
+
+
+def frame_ms(tracker):
+    """(p50, all) of a tracker's per-step host times, ms, unrounded."""
+    xs = [x * 1e3 for x in tracker.tracer.spans["frame"]]
+    return float(np.median(xs)), xs
+
+
+def phase_stream(model, vol512, vol256, card):
+    """Frames on disk -> `load_volume` -> `PoseTracker.step` on the clinical
+    grid. Returns the stream path's launch counts (taken with the counts set
+    to 0 at its start) and the frozen ROI window of frame 3, for the kernels'
+    check at that shape."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mamri_tpu_torch import native
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.api.streaming import PoseTracker
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.perception.dicom import save_dicom_series
+    from mamri_tpu_torch.perception.formats import load_volume, save_nrrd
+    from mamri_tpu_torch.perception.io import save_nifti
+    from mamri_tpu_torch.perception.volume import Volume, synthetic_volume
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    sp, org = vol512.spacing, vol512.origin
+    base = _base_tf(0.15)
+    poses = [TRUE_ANGLES + np.float32(0.02 * k) for k in range(STREAM_DEPTH)]
+    jump = TRUE_ANGLES + JUMP
+    t0 = time.perf_counter()
+    bg = synthetic_volume(shape=vol512.shape, spacing=sp, origin=org, body_center_ras=BODY_CENTER,
+                          body_radii_mm=[45.0, 55.0, 65.0]).data
+    datas = [paint_spheres(bg, sp, org, _markers(model, a, base)).astype(np.int16) for a in poses + [jump]]
+    if not np.array_equal(datas[0], vol512.data):
+        raise AssertionError("stream frame 0 differs from synthetic_volume's rendering of the same scene")
+    print(f"stream: {len(datas)} frames of {vol512.shape} int16 rendered in {time.perf_counter() - t0:.3f} s; "
+          f"native host library built: {native.available()}")
+
+    # ---- 1-2: write with the port's writers, read back with load_volume
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stream-", dir=os.path.join(REPO, "build"))
+    try:
+        files = []
+        t0 = time.perf_counter()
+        for k, d in enumerate(datas[:STREAM_DEPTH]):
+            files.append((f"nrrd frame {k}", os.path.join(tmp, f"frame{k}.nrrd"), d))
+            save_nrrd(files[-1][1], Volume(d, sp, org), encoding="raw")
+        write_ms = {"nrrd": (time.perf_counter() - t0) * 1e3 / STREAM_DEPTH}
+        t0 = time.perf_counter()
+        save_dicom_series(os.path.join(tmp, "dicom0"), Volume(datas[0], sp, org), transfer="explicit_le")
+        write_ms["dicom explicit_le"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        save_nifti(os.path.join(tmp, "frame0.nii"), Volume(datas[0], sp, org))
+        write_ms["nifti"] = (time.perf_counter() - t0) * 1e3
+        files += [("dicom explicit_le frame 0", os.path.join(tmp, "dicom0"), datas[0]),
+                  ("nifti frame 0", os.path.join(tmp, "frame0.nii"), datas[0])]
+        frames, load_ms = [], {}
+        for label, path, want in files:
+            t0 = time.perf_counter()
+            v = load_volume(path)
+            load_ms[label] = (time.perf_counter() - t0) * 1e3
+            if not (v.data.dtype == want.dtype and np.array_equal(v.data, want)
+                    and v.spacing.tobytes() == sp.tobytes() and v.origin.tobytes() == org.tobytes()):
+                raise AssertionError(f"stream: {label} read back as {v.data.dtype} {v.spacing} {v.origin}, "
+                                     f"not what was written")
+            if label.startswith("nrrd"):
+                frames.append(v)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"stream files: write ms {json.dumps(write_ms)}; load_volume ms {json.dumps(load_ms)}; each equal to what "
+          f"was written (data, dtype, spacing, origin) ({card})")
+    jump_frame = Volume(datas[-1], sp, org)
+
+    log = logging.getLogger("mamri_tpu_torch.api.engine")
+    esc = _Escalations()
+    log.addHandler(esc)
+    gpu_ops.reset_launch_counts()  # the stream path from here on
+    try:
+        # ---- 3: the synchronous tracker on the full frames
+        tracer = Tracer()
+        eng = MamriEngine(device="cuda", tracer=tracer)
+        sync = PoseTracker(eng)
+        sync_res = [sync.step(f) for f in frames]
+        for k, (r, a) in enumerate(zip(sync_res, poses)):
+            check_estimate(r, a, f"stream sync frame {k}")
+
+        # ---- 4: the ROI tracker
+        eng.set_pose(np.zeros(6, np.float32))
+        roi = PoseTracker(eng, roi_margin_mm=40.0)
+        roi_res = [roi.step(f) for f in frames]
+        for k, (r, a) in enumerate(zip(roi_res, poses)):
+            check_estimate(r, a, f"stream ROI frame {k}")
+        st = roi.stats()
+        if (st["roi_frames"], st["roi_fallbacks"]) != (STREAM_DEPTH - 1, 0):
+            raise AssertionError(f"stream ROI: {st}")
+        gap = max(float(np.degrees(np.abs(r.angles_rad - s.angles_rad)).max())
+                  for r, s in zip(roi_res[1:], sync_res[1:]))
+        if not gap < 0.2:
+            raise AssertionError(f"stream ROI: angles {gap} deg from the full frames' (limit 0.2)")
+        window = roi._crop_roi(frames[-1])
+        item = frames[0].data.itemsize
+        print(f"stream ROI: roi_frames={st['roi_frames']} roi_fallbacks={st['roi_fallbacks']} roi_shape="
+              f"{st['roi_shape']} {int(np.prod(st['roi_shape'])) * item} B against the full frame's "
+              f"{frames[0].data.size * item} B; max |ROI - full| {gap} deg")
+
+        # ---- 5: a pose jump past a 25 mm margin: the same step falls back to the full frame
+        eng.set_pose(np.zeros(6, np.float32))
+        tight = PoseTracker(eng, roi_margin_mm=25.0)
+        check_estimate(tight.step(frames[0]), poses[0], "stream jump frame 0")
+        r = tight.step(jump_frame)
+        st = tight.stats()
+        if not (r.success and st["roi_fallbacks"] == 1 and st["failures"] == 0):
+            raise AssertionError(f"stream jump: {r.message} {st}")
+        check_estimate(r, jump, "stream jump frame (full-frame fallback)")
+
+        # ---- 6: pipelined, depth 1; the host frame overwritten as soon as step returns
+        eng.set_pose(np.zeros(6, np.float32))
+        ref = PoseTracker(eng).step(frames[0])
+        eng.set_pose(np.zeros(6, np.float32))
+        pipe = PoseTracker(eng, pipelined=True, depth=1)
+        scratch = Volume(frames[0].data.copy(), sp, org)
+        if pipe.step(scratch) is not None:
+            raise AssertionError("stream pipelined: a result before the pipeline filled")
+        scratch.data[...] = 0
+        r1 = pipe.step(frames[0])
+        rest = pipe.flush()
+        if r1 is None or len(rest) != 1 or pipe.frames != 2 or pipe.failures:
+            raise AssertionError(f"stream pipelined: {r1} {rest} {pipe.stats()}")
+        pgap = float(np.abs(r1.angles_rad - ref.angles_rad).max())
+        if not pgap <= 1e-4:
+            raise AssertionError(f"stream pipelined: {pgap} rad from the synchronous result (limit 1e-4)")
+        eng.set_pose(np.zeros(6, np.float32))
+        pipe = PoseTracker(eng, pipelined=True, depth=1)
+        pipe_res = [pipe.step(f) for f in frames]
+        pipe_res = [r for r in pipe_res if r is not None] + pipe.flush()
+        for k, (r, a) in enumerate(zip(pipe_res, poses)):
+            check_estimate(r, a, f"stream pipelined frame {k}")
+        print(f"stream pipelined: equal to the synchronous result within {pgap} rad with the host frame "
+              f"overwritten after step; {len(pipe_res)} frames checked")
+
+        # ---- 7: re-planning on the 256^3 bench scene (it has a body)
+        eng256 = MamriEngine(device="cuda", tracer=tracer)
+        check_pose(eng256, eng256.estimate_pose(vol256), TRUE_ANGLES, "stream re-plan scan 256^3")
+        ep = eng256.find_entry_point(BODY_CENTER)
+        replan = PoseTracker(eng256, target_ras=BODY_CENTER, entry_ras=ep.point_ras, safety_mm=5.0, replan_every=2)
+        for _ in range(2):
+            check_estimate(replan.step(vol256), TRUE_ANGLES, "stream re-plan frame")
+        plan = replan.last_plan
+        if not (plan is not None and plan.success and plan.path.shape == (101, 6)
+                and replan.tracer.stats("replan")["count"] == 1):
+            raise AssertionError(f"stream re-plan: {plan}")
+        print(f"stream re-plan: one plan, success, path {plan.path.shape}, collision={plan.collision_detected}, "
+              f"replan_ms={replan.tracer.spans['replan'][0] * 1e3} ({card})")
+
+        # ---- 8: int16 against float32 of the same frame
+        e16, e32 = MamriEngine(device="cuda"), MamriEngine(device="cuda")
+        a16 = e16.estimate_pose(frames[0], keep_segmentation=False)
+        a32 = e32.estimate_pose(Volume(frames[0].data.astype(np.float32), sp, org), keep_segmentation=False)
+        for field in ("angles_rad", "steps", "baseplate_tf", "rmse_mm", "markers_found", "num_blobs"):
+            if not np.array_equal(np.asarray(getattr(a16, field)), np.asarray(getattr(a32, field))):
+                raise AssertionError(f"stream int16 vs float32: {field} {getattr(a16, field)} != {getattr(a32, field)}")
+        print("stream int16 vs float32: bit-equal")
+
+        # ---- 10: one stream frame launches what one estimate_pose launches
+        tallies = {}
+        for label, volume, tracker_args in (("full", frames[1], {}), ("ROI", frames[1], {"roi_margin_mm": 40.0})):
+            e_step, e_call = MamriEngine(device="cuda"), MamriEngine(device="cuda")
+            tr = PoseTracker(e_step, **tracker_args)
+            tr.last_estimate = sync_res[0]  # anchors the window on frame 0's pose
+            call_vol = tr._crop_roi(volume) if tracker_args else volume
+            step_tally, call_tally = {}, {}
+            with_counts(gpu_ops, step_tally, tr.step, volume)
+            with_counts(gpu_ops, call_tally, e_call.estimate_pose, call_vol, keep_segmentation=False)
+            if step_tally != call_tally or (tracker_args and tr.roi_frames != 1):
+                raise AssertionError(f"stream {label} frame launched {step_tally}, estimate_pose {call_tally}")
+            tallies[label] = step_tally
+        print(f"launches of one stream frame = one estimate_pose's: {json.dumps(tallies)}")
+    finally:
+        log.removeHandler(esc)
+    uncertified = [m for m in esc.messages if "uncertified" in m]
+    if uncertified:
+        raise AssertionError(f"stream: uncertified segmentations: {uncertified}")
+    counts = read_path_counts(gpu_ops, DEFAULT_PATH_KERNELS[:-1], "stream path")
+
+    # timings: frames per mode, and the uploads
+    for label, tracker in (("sync", sync), ("ROI", roi), ("pipelined", pipe)):
+        p50, xs = frame_ms(tracker)
+        print(f"stream frame {label} 512x512x192 p50_ms={p50} all_ms={xs} ({card})")
+    f32 = frames[0].data.astype(np.float32)
+    for label, data in (("float32 frame", f32), ("int16 frame", frames[0].data), ("ROI int16 window", window.data)):
+        p50, xs = p50_ms(lambda: eng._upload(data))
+        print(f"stream upload {label} {data.shape} {data.nbytes} B p50_ms={p50} all_ms={xs} ({card})")
+    print("stream engine tracer:\n" + tracer.report())
+    return counts, window
+
+
 def main() -> int:
     try:
         import torch
@@ -1031,6 +1267,14 @@ def main() -> int:
 
     # ---- phase 9: planning on the bench scene at 256^3 (no kernel runs on this path)
     phase_planning(vol256, card)
+
+    # ---- phase 10: a stream from disk on the clinical grid; then every kernel at its ROI window's shape
+    paths["stream"], window = phase_stream(model, vol512, vol256, card)
+    label = "ROI " + "x".join(str(n) for n in window.shape)
+    for name, e in compare_kernels(window.data.astype(np.float32), label, card, failures, timings).items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    if failures:
+        raise AssertionError("kernels disagree with their twins at the ROI window:\n" + "\n".join(failures))
 
     main_t = timings["256^3"]
     kernels = []

@@ -4,8 +4,10 @@ batched, asynchronous), entry search and collision-checked planning.
 Port of `_LRUCache`, `MamriEngine.__init__`, `pipeline_fn`, `clear_caches`,
 `_get_pipeline`, `_escalate_seg_params`, `estimate_pose`,
 `estimate_pose_async` / `_collect`, `_finish_estimate`,
-`estimate_pose_batch` (mamri_tpu/api/engine.py:62-681), and of the body
-mask, conversion and planning methods (:970-1238). The per-volume program
+`estimate_pose_batch` (mamri_tpu/api/engine.py:62-681), of the baseplate
+and pose state methods (:683-711, 1241-1260), and of the body mask,
+segmentation export, conversion and planning methods (:970-1238), with the
+reference's tracer spans. The per-volume program
 (segmentation -> triplet matching -> baseplate fit -> full-chain IK -> motor
 steps) runs eagerly on the engine's device, cached per (shape, params) as the
 reference caches its jitted programs; the host reads the certificates and
@@ -18,6 +20,7 @@ body on the engine's device and returns each result through one fetch.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
@@ -40,6 +43,7 @@ from mamri_tpu_torch.planning.heuristic import check_path_collisions, heuristic_
 from mamri_tpu_torch.planning.trajectory import TrajectoryIKResult, solve_trajectory_ik
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets
+from mamri_tpu_torch.utils.trace import Tracer
 
 logger = logging.getLogger(__name__)
 
@@ -113,6 +117,7 @@ class MamriEngine:
         config_path: Optional[str] = None,
         mesh_dir: Optional[str] = None,
         seg_params: Optional[SegmentationParams] = None,
+        tracer: Optional[Tracer] = None,
         ik_iters: int = 24,
         ik_restarts: int = 2,
         match_mode: str = "best",
@@ -140,6 +145,7 @@ class MamriEngine:
             seg_params if seg_params is not None
             else SegmentationParams(max_sweeps=2, passes=3, max_roots=128)
         )
+        self.tracer = tracer or Tracer(enabled=False)
         self.ik_iters = ik_iters
         self.ik_restarts = ik_restarts
         self.match_mode = match_mode
@@ -164,6 +170,55 @@ class MamriEngine:
         self.saved_baseplate = None if saved_baseplate is None else np.array(saved_baseplate, np.float32)
         if current_angles is not None:
             self.current_angles = np.array(current_angles, np.float32)
+
+    # ---------------------------------------------------------------- state
+    def save_baseplate(self, path: Optional[str] = None) -> np.ndarray:
+        """Keep the current baseplate transform as the saved one, and write it
+        to `path` (`.npz`) when given."""
+        if self.baseplate_tf is None:
+            raise RuntimeError("no baseplate transform yet; run estimate_pose first")
+        self.saved_baseplate = np.asarray(self.baseplate_tf).copy()
+        if path is not None:
+            np.savez(path, baseplate_tf=self.saved_baseplate)
+        return self.saved_baseplate
+
+    def load_baseplate(self, path: str) -> np.ndarray:
+        with np.load(path) as f:
+            self.saved_baseplate = np.asarray(f["baseplate_tf"], dtype=np.float32)
+        return self.saved_baseplate
+
+    def set_pose(self, angles_rad) -> None:
+        angles = np.asarray(angles_rad, dtype=np.float32).reshape(-1)
+        if angles.shape[0] != self.model.num_joints:
+            raise ValueError(f"expected {self.model.num_joints} angles, got {angles.shape[0]}")
+        self.current_angles = angles
+
+    def get_current_joint_angles(self) -> np.ndarray:
+        return self.current_angles.copy()
+
+    def zero_robot(self) -> None:
+        self.current_angles = np.zeros_like(self.current_angles)
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the engine's scene state (baseplate, pose, saved
+        baseplate) as `.npz` + `.meta.json`, in the reference's format."""
+        arrays = {"current_angles": self.current_angles}
+        meta = {"has_baseplate": self.baseplate_tf is not None, "has_saved": self.saved_baseplate is not None}
+        if self.baseplate_tf is not None:
+            arrays["baseplate_tf"] = self.baseplate_tf
+        if self.saved_baseplate is not None:
+            arrays["saved_baseplate"] = self.saved_baseplate
+        np.savez(path, **arrays)
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+
+    def load_state(self, path: str) -> None:
+        with np.load(path) as f:
+            self.current_angles = np.asarray(f["current_angles"], dtype=np.float32)
+            if "baseplate_tf" in f:
+                self.baseplate_tf = np.asarray(f["baseplate_tf"], dtype=np.float32)
+            if "saved_baseplate" in f:
+                self.saved_baseplate = np.asarray(f["saved_baseplate"], dtype=np.float32)
 
     # ---------------------------------------------------------------- compute core
     def pipeline_fn(self, seg_params: Optional[SegmentationParams] = None):
@@ -345,46 +400,47 @@ class MamriEngine:
         """Scan -> pose (the reference's `process()`), escalating the
         segmentation budgets until every certificate holds."""
         args = self._pipeline_args(volume, use_saved_baseplate, apply_correction)
-        params = self.seg_params
-        while True:
-            dev_out = self._get_pipeline(volume.shape, params)(*args)
-            # ONE host sync per attempt: certificates and results come back
-            # together; the body mask only once certification settles, and
-            # only when the caller keeps the segmentation
-            mask = dev_out.pop("body_mask")
-            out = self._fetch(dev_out)
-            certs = {k: bool(out[k]) for k in _CERTIFICATES}
-            converged, complete, blobs_ok = (
-                certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
-            )
-            if converged and complete and blobs_ok:
-                break
-            stronger = self._escalate_seg_params(
-                params, converged, complete, blobs_ok,
-                count_ok=certs["seg_count_ok"],
-                cand_ok=certs["seg_cand_ok"],
-                runs_ok=certs["seg_runs_ok"],
-                compact_ok=certs["seg_compact_ok"],
-                jnp_path=params.use_pallas is False,
-            )
-            if stronger is None:
-                logger.warning(
-                    "segmentation uncertified at strongest settings "
-                    "(converged=%s, roots_complete=%s, blobs_complete=%s, num_components=%d)",
-                    converged, complete, blobs_ok, int(out["num_components"]),
+        with self.tracer.span("estimate_pose"):
+            params = self.seg_params
+            while True:
+                dev_out = self._get_pipeline(volume.shape, params)(*args)
+                # ONE host sync per attempt: certificates and results come back
+                # together; the body mask only once certification settles, and
+                # only when the caller keeps the segmentation
+                mask = dev_out.pop("body_mask")
+                out = self._fetch(dev_out)
+                certs = {k: bool(out[k]) for k in _CERTIFICATES}
+                converged, complete, blobs_ok = (
+                    certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
                 )
-                break
-            logger.warning(
-                "segmentation escalation: converged=%s roots_complete=%s "
-                "blobs_complete=%s num_components=%d -> passes=%s "
-                "max_sweeps=%d max_roots=%d max_blobs=%d exhaustive=%s",
-                converged, complete, blobs_ok, int(out["num_components"]),
-                stronger.passes, stronger.max_sweeps, stronger.max_roots,
-                stronger.max_blobs, stronger.exhaustive_roots,
-            )
-            params = stronger
-        if keep_segmentation:
-            out.update(self._fetch({"body_mask": mask}))
+                if converged and complete and blobs_ok:
+                    break
+                stronger = self._escalate_seg_params(
+                    params, converged, complete, blobs_ok,
+                    count_ok=certs["seg_count_ok"],
+                    cand_ok=certs["seg_cand_ok"],
+                    runs_ok=certs["seg_runs_ok"],
+                    compact_ok=certs["seg_compact_ok"],
+                    jnp_path=params.use_pallas is False,
+                )
+                if stronger is None:
+                    logger.warning(
+                        "segmentation uncertified at strongest settings "
+                        "(converged=%s, roots_complete=%s, blobs_complete=%s, num_components=%d)",
+                        converged, complete, blobs_ok, int(out["num_components"]),
+                    )
+                    break
+                logger.warning(
+                    "segmentation escalation: converged=%s roots_complete=%s "
+                    "blobs_complete=%s num_components=%d -> passes=%s "
+                    "max_sweeps=%d max_roots=%d max_blobs=%d exhaustive=%s",
+                    converged, complete, blobs_ok, int(out["num_components"]),
+                    stronger.passes, stronger.max_sweeps, stronger.max_roots,
+                    stronger.max_blobs, stronger.exhaustive_roots,
+                )
+                params = stronger
+            if keep_segmentation:
+                out.update(self._fetch({"body_mask": mask}))
         return self._finish_estimate(out, volume, store_state, keep_segmentation)
 
     def estimate_pose_async(
@@ -574,20 +630,41 @@ class MamriEngine:
             return None
         return np.asarray(self.last_segmentation["body_mask"])
 
-    def set_body_segmentation(self, source, spacing=None, origin=None):
-        """Override the body mask used by entry search and collision checks
-        with a bool (nx, ny, nz) `source` mask and its `spacing` / `origin`
-        (LPS). Drops the collision world built from the previous body. The
-        reference's other form, a `.seg.nrrd` path, needs the volume I/O of
-        ROADMAP A 5, which the port does not have yet."""
+    def export_segmentation(self, path: str) -> str:
+        """Write the last run's body segmentation as a Slicer-loadable
+        `.seg.nrrd` with one "Body" segment. Requires a prior estimate with a
+        body found."""
+        mask = self.body_mask()
+        if mask is None:
+            raise RuntimeError("no body segmentation available; run estimate_pose first")
+        from mamri_tpu_torch.perception.formats import save_seg_nrrd
+
+        spacing, origin = self.last_volume_geom
+        save_seg_nrrd(path, {"Body": mask.astype(bool)}, spacing, origin)
+        return path
+
+    def set_body_segmentation(self, source, spacing=None, origin=None, segment: str = "Body"):
+        """Override the body mask used by entry search and collision checks.
+        `source` is a `.seg.nrrd` path (the `segment`-named segment is taken,
+        or the only one) or a bool (nx, ny, nz) mask with explicit `spacing`
+        / `origin` (LPS). Drops the collision world built from the previous
+        body."""
         if isinstance(source, (str, os.PathLike)):
-            raise NotImplementedError(
-                "set_body_segmentation from a .seg.nrrd path is not ported yet: see ROADMAP.md, queue A 5 "
-                "(volume I/O); pass the mask with its spacing and origin"
-            )
-        if spacing is None or origin is None:
+            from mamri_tpu_torch.perception.formats import load_seg_nrrd
+
+            segments, labelmap = load_seg_nrrd(os.fspath(source))
+            if segment in segments:
+                mask = segments[segment]
+            elif len(segments) == 1:
+                mask = next(iter(segments.values()))
+            else:
+                raise ValueError(f"{source}: no segment named {segment!r} among {sorted(segments)}")
+            spacing, origin = labelmap.spacing, labelmap.origin
+        elif spacing is None or origin is None:
             raise ValueError("a raw mask needs explicit spacing and origin")
-        mask = np.array(source, dtype=bool)  # the engine's own copy
+        else:
+            mask = source
+        mask = np.array(mask, dtype=bool)  # the engine's own copy
         if mask.ndim != 3 or not mask.any():
             raise ValueError("body mask must be a non-empty 3-D boolean volume")
         seg = dict(self.last_segmentation) if self.last_segmentation is not None else {}
@@ -619,7 +696,8 @@ class MamriEngine:
         """The collision world of the current body, built on first use."""
         if self.last_collision_world is None and self._has_body():
             spacing, origin = self.last_volume_geom
-            self.last_collision_world = build_collision_world(self._require_body_mask(), spacing, origin)
+            with self.tracer.span("build_collision_world"):
+                self.last_collision_world = build_collision_world(self._require_body_mask(), spacing, origin)
         return self.last_collision_world
 
     def find_entry_point(self, target_ras) -> EntryPointResult:
@@ -628,8 +706,10 @@ class MamriEngine:
         if not self._has_body():
             raise RuntimeError("no body segmentation available; run estimate_pose first")
         spacing, origin = self.last_volume_geom
-        res = find_entry_point(self._require_body_mask(), spacing, origin, self._upload(target_ras, torch.float32))
-        return EntryPointResult(**self._fetch(res._asdict()))
+        with self.tracer.span("find_entry_point"):
+            res = find_entry_point(self._require_body_mask(), spacing, origin, self._upload(target_ras, torch.float32))
+            out = self._fetch(res._asdict())
+        return EntryPointResult(**out)
 
     def _plan_args(self, target_ras, entry_ras, safety, start=None):
         if self.baseplate_tf is None:
@@ -653,8 +733,10 @@ class MamriEngine:
     def plan_trajectory(self, target_ras, entry_ras, safety_distance_mm: float = DEFAULT_SAFETY_DISTANCE_MM):
         """Collision-aware goal IK for the needle (host arrays, one fetch)."""
         (target, entry, safety, base_tf, _, current), world = self._plan_args(target_ras, entry_ras, safety_distance_mm)
-        res = self._solve_goal(target, entry, safety, base_tf, current, world)
-        return TrajectoryIKResult(**self._fetch(res._asdict()))
+        with self.tracer.span("plan_trajectory"):
+            res = self._solve_goal(target, entry, safety, base_tf, current, world)
+            out = self._fetch(res._asdict())
+        return TrajectoryIKResult(**out)
 
     def plan_trajectory_sweep(self, target_ras, entry_ras, safety_distances_mm):
         """The goal IK for each of several safety distances, stacked (host
@@ -662,9 +744,11 @@ class MamriEngine:
         reference vmaps them."""
         distances = np.asarray(safety_distances_mm, dtype=np.float32)
         (target, entry, safeties, base_tf, _, current), world = self._plan_args(target_ras, entry_ras, distances)
-        sols = [self._solve_goal(target, entry, d, base_tf, current, world) for d in safeties]
-        stacked = {k: torch.stack([getattr(s, k) for s in sols]) for k in TrajectoryIKResult._fields}
-        return TrajectoryIKResult(**self._fetch(stacked))
+        with self.tracer.span("plan_trajectory_sweep"):
+            sols = [self._solve_goal(target, entry, d, base_tf, current, world) for d in safeties]
+            stacked = {k: torch.stack([getattr(s, k) for s in sols]) for k in TrajectoryIKResult._fields}
+            out = self._fetch(stacked)
+        return TrajectoryIKResult(**out)
 
     def plan_heuristic_path(
         self,
@@ -685,17 +769,18 @@ class MamriEngine:
         (target, entry, safety, base_tf, start_t, current), world = self._plan_args(
             target_ras, entry_ras, safety_distance_mm, start=start
         )
-        goal = self._solve_goal(target, entry, safety, base_tf, current, world)
-        kf = heuristic_keyframes(start_t, goal.angles)
-        path = interpolate_path(kf, total_steps)
-        if world is not None:
-            flags = check_path_collisions(self.model, self.geometry, path, base_tf, world)
-        else:
-            flags = torch.zeros(path.shape[0], dtype=torch.bool, device=self.device)
-        out = self._fetch({
-            "success": goal.success, "angles": goal.angles, "position_error_mm": goal.position_error_mm,
-            "keyframes": kf, "path": path, "flags": flags,
-        })
+        with self.tracer.span("plan_heuristic_path"):
+            goal = self._solve_goal(target, entry, safety, base_tf, current, world)
+            kf = heuristic_keyframes(start_t, goal.angles)
+            path = interpolate_path(kf, total_steps)
+            if world is not None:
+                flags = check_path_collisions(self.model, self.geometry, path, base_tf, world)
+            else:
+                flags = torch.zeros(path.shape[0], dtype=torch.bool, device=self.device)
+            out = self._fetch({
+                "success": goal.success, "angles": goal.angles, "position_error_mm": goal.position_error_mm,
+                "keyframes": kf, "path": path, "flags": flags,
+            })
         if not bool(out["success"]):
             return TrajectoryPlan(success=False, message="Could not find a valid, collision-free trajectory solution.")
         if world is None:
@@ -735,10 +820,11 @@ class MamriEngine:
         if self._exact_parts is None or self._exact_parts.max_edge_mm != max_edge_mm:
             self._exact_parts = build_exact_parts(self.model, mesh_dir=self.mesh_dir, max_edge_mm=max_edge_mm)
         spacing, origin = self.last_volume_geom
-        out = validate_path_exact(
-            self.model, self._exact_parts, np.asarray(self.last_segmentation["body_mask"]), spacing, origin,
-            self.baseplate_tf, path,
-        )
+        with self.tracer.span("validate_plan_exact"):
+            out = validate_path_exact(
+                self.model, self._exact_parts, np.asarray(self.last_segmentation["body_mask"]), spacing, origin,
+                self.baseplate_tf, path,
+            )
         fast_flagged = bool(plan.collision_detected) if plan is not None else None
         out["fast_checker_flagged"] = fast_flagged
         out["over_conservative"] = bool(fast_flagged and out["collision_free"]) if fast_flagged is not None else None

@@ -1,8 +1,8 @@
 """Public result types of the port's MamriEngine.
 
-The port's own copies of `PoseEstimate` and `TrajectoryPlan`
-(mamri_tpu/api/types.py:11-25, 43-54): the same fields, defaults and order,
-so results read the same in both packages.
+The port's own copies of `PoseEstimate`, `ActionState` and `TrajectoryPlan`
+(mamri_tpu/api/types.py:11-54): the same fields, defaults and order, so
+results read the same in both packages.
 """
 
 from __future__ import annotations
@@ -26,6 +26,19 @@ class PoseEstimate:
     markers_found: Dict[str, bool] = field(default_factory=dict)
     num_blobs: int = 0
     message: str = ""
+
+
+@dataclass(frozen=True)
+class ActionState:
+    """Availability of one user-facing action (a gated UI button of the
+    reference); `reason` says what the action does when enabled, or what is
+    missing when disabled."""
+
+    enabled: bool
+    reason: str = ""
+
+    def __bool__(self) -> bool:
+        return self.enabled
 
 
 @dataclass

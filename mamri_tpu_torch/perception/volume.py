@@ -18,8 +18,6 @@ import numpy as np
 
 _LPS_RAS_FLIP = np.asarray([-1.0, -1.0, 1.0], dtype=np.float32)
 
-# scanner-native dtypes kept as-is: segmentation casts to f32 on the device
-_COMPACT_DTYPES = (np.int8, np.uint8, np.int16, np.uint16)
 
 
 def lps_to_ras(points):
@@ -27,11 +25,17 @@ def lps_to_ras(points):
     return np.asarray(points, dtype=np.float32) * _LPS_RAS_FLIP
 
 
+def ras_to_lps(points):
+    """RAS -> LPS (the same involution)."""
+    return lps_to_ras(points)
+
+
 def storage_array(data) -> np.ndarray:
-    """Compact scanner dtypes pass through native-endian; all else -> f32."""
+    """The array a format writer stores: compact scanner dtypes
+    (`Volume._COMPACT_DTYPES`) pass through native-endian; all else -> f32."""
     arr = np.asarray(data)
     native = arr.dtype.newbyteorder("=")
-    if native in _COMPACT_DTYPES:
+    if native in Volume._COMPACT_DTYPES:
         return np.asarray(arr, dtype=native)
     return np.asarray(arr, dtype=np.float32)
 
@@ -44,6 +48,10 @@ class Volume:
     spacing: np.ndarray  # (3,) mm per voxel
     origin: np.ndarray  # (3,) LPS position of voxel (0, 0, 0)
 
+    # scanner-native dtypes kept as-is: segmentation casts to f32 on the
+    # device, and every value of these is exact in f32
+    _COMPACT_DTYPES = (np.int8, np.uint8, np.int16, np.uint16)
+
     def __post_init__(self):
         self.data = storage_array(self.data)
         self.spacing = np.asarray(self.spacing, dtype=np.float32)
@@ -52,6 +60,21 @@ class Volume:
     @property
     def shape(self) -> Tuple[int, int, int]:
         return self.data.shape
+
+    @property
+    def voxel_volume_mm3(self) -> float:
+        return float(np.prod(self.spacing))
+
+    def index_to_lps(self, idx):
+        return self.origin + self.spacing * np.asarray(idx, dtype=np.float32)
+
+    def index_to_ras(self, idx):
+        lps = self.index_to_lps(idx)
+        return lps * np.asarray([-1.0, -1.0, 1.0], dtype=np.float32)
+
+    def ras_to_index(self, ras):
+        lps = np.asarray(ras, dtype=np.float32) * np.asarray([-1.0, -1.0, 1.0], dtype=np.float32)
+        return (lps - self.origin) / self.spacing
 
 
 def synthetic_volume(

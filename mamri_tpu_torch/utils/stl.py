@@ -22,11 +22,17 @@ import numpy as np
 def load_stl(path: str) -> np.ndarray:
     """Load an STL file -> (T, 3, 3) float32 triangle vertices (mm).
 
-    Pure Python and numpy: the JAX package's native C++ fast path for binary
-    files is not ported (ROADMAP A 5), and its values are the same."""
+    Binary files go through the native C++ parser (mamri_tpu_torch.native) when the
+    toolchain is available; ASCII and fallback paths are pure Python."""
     with open(path, "rb") as f:
         head = f.read(5)
         f.seek(0)
+        if head != b"solid":
+            from mamri_tpu_torch import native
+
+            tris = native.parse_stl_native(path)
+            if tris is not None:
+                return tris
         if head == b"solid":
             # could still be binary (some exporters write 'solid' headers);
             # try ASCII, fall back to binary on parse failure

@@ -20,6 +20,7 @@ from mamri_tpu_torch.api.engine import MamriEngine
 from mamri_tpu_torch.perception.segmentation import SegmentationParams
 from mamri_tpu_torch.perception.volume import Volume
 from test_torch_engine import CERTS, PIPELINE_KEYS, TRUE_ANGLES, _scene
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 BATCH_KEYS = sorted(k for k in PIPELINE_KEYS if k != "body_mask")
 ENGINE_LOG = "mamri_tpu_torch.api.engine"

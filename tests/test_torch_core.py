@@ -17,6 +17,7 @@ from mamri_tpu_torch.core import robot as trobot
 from mamri_tpu_torch.core import transforms as tT
 from mamri_tpu_torch.core.units import angles_to_steps as t_angles_to_steps
 from mamri_tpu_torch.perception import volume as tvolume
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -539,3 +539,21 @@ def test_engine_fetch_and_host_syncs(cuda):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
     assert not [s for s in syncs if "api/engine.py" in s.replace("\\", "/")], syncs
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_upload_of_a_strided_window_is_staged_before_it_returns(cuda, dtype):
+    """The engine's upload of a ROI window (a strided view of the host frame,
+    as `PoseTracker._crop_roi` makes it) holds the frame's values even when
+    the host frame is overwritten as soon as `_upload` returns."""
+    from mamri_tpu_torch.api import engine as E
+
+    eng = E.MamriEngine(device=cuda, ik_restarts=0)
+    frame = np.random.default_rng(7).integers(0, 2000, size=(300, 280, 96)).astype(dtype)
+    window = frame[13:213, 40:240, 8:88]
+    want = window.copy()
+    got = eng._upload(window)
+    frame[...] = 0
+    torch.cuda.synchronize()
+    assert got.dtype == torch.from_numpy(want).dtype and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.cpu().numpy(), want)

@@ -45,6 +45,16 @@ CERTS = ("seg_converged", "roots_complete", "blobs_complete", "seg_count_ok", "s
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs on several workers at
+    once, and a thread per core each oversubscribes the machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _base_tf():
     return np.array(
         jT.translate(jnp.asarray([-60.0, -120.0, 0.0])) @ jT.rot_x(jnp.float32(-np.pi / 2)) @ jT.rot_z(jnp.float32(0.15))
@@ -366,9 +376,11 @@ def test_fetch_equals_per_key_copies(scene):
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port's package, engine, kernels'
-    module, parity harness and planning layer import, a CPU `estimate_pose`
-    solves a scene and a CPU `plan_trajectory` a needle goal, and no module
-    of jax or of the JAX package `mamri_tpu` was loaded."""
+    module, parity harness, planning layer, tracker, tracer and readers
+    import, a CPU `estimate_pose` solves a scene, a CPU `plan_trajectory` a
+    needle goal, and a `PoseTracker.step` the scene read back by
+    `load_volume`, and no module of jax or of the JAX package `mamri_tpu` was
+    loaded."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -378,6 +390,9 @@ def test_port_imports_without_jax():
         "from mamri_tpu_torch.core.robot import marker_world_positions\n"
         "from mamri_tpu_torch.perception import gpu_ops, parity, segmentation\n"
         "from mamri_tpu_torch.perception.volume import synthetic_volume\n"
+        "from mamri_tpu_torch.api.streaming import PoseTracker\n"
+        "from mamri_tpu_torch.perception import dicom, formats\n"
+        "from mamri_tpu_torch.utils import trace\n"
         "e = MamriEngine(device='cpu', ik_restarts=0)\n"
         "assert e.model.num_joints == 6\n"
         "truth = torch.tensor([0.3, -0.7, 0.5, 0.2, -0.4, 0.6])\n"
@@ -396,6 +411,13 @@ def test_port_imports_without_jax():
         "import mamri_tpu_torch.planning, mamri_tpu_torch.planning.exact, mamri_tpu_torch.utils.stl\n"
         "goal = e.plan_trajectory(pts[-1] + np.float32(30.0), pts[-1])\n"
         "assert goal.angles.shape == (6,) and np.isfinite(goal.angles).all() and goal.position_error_mm < 1.0, goal\n"
+        "import os, tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    formats.save_volume(os.path.join(d, 'scan.nrrd'), vol)\n"
+        "    back = formats.load_volume(os.path.join(d, 'scan.nrrd'))\n"
+        "assert np.array_equal(back.data, vol.data) and back.data.dtype == vol.data.dtype\n"
+        "step = PoseTracker(e).step(back)\n"
+        "assert step.success and float(abs(step.angles_rad[0] - 0.3)) < 0.02, step\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in loaded)\n"
         "assert not any(m == 'mamri_tpu' or m.startswith('mamri_tpu.') for m in loaded), loaded\n"

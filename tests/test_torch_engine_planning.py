@@ -28,6 +28,7 @@ from mamri_tpu.perception.volume import synthetic_volume
 from mamri_tpu_torch.api.engine import MamriEngine
 from mamri_tpu_torch.api.types import TrajectoryPlan
 from mamri_tpu_torch.perception.volume import Volume
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 BODY_CENTER = np.array([-60.0, -40.0, 130.0], np.float32)
 
@@ -187,8 +188,8 @@ def test_planning_needs_state():
     eng.trajectory_path = np.zeros((3, 6), np.float32)
     with pytest.raises(RuntimeError, match="no body segmentation"):
         eng.validate_plan_exact()
-    with pytest.raises(NotImplementedError, match="A 5"):
-        eng.set_body_segmentation("body.seg.nrrd")
+    with pytest.raises(FileNotFoundError):
+        eng.set_body_segmentation("body.seg.nrrd")  # a path is read as a .seg.nrrd file
     with pytest.raises(ValueError, match="spacing and origin"):
         eng.set_body_segmentation(np.ones((4, 4, 4), bool))
     with pytest.raises(ValueError, match="non-empty"):

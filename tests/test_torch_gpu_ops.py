@@ -15,6 +15,7 @@ from mamri_tpu.perception import pallas_ops as P
 from mamri_tpu.perception import segmentation as jseg
 from mamri_tpu_torch.perception import gpu_ops as G
 from mamri_tpu_torch.perception import segmentation as tseg
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 BIG = 2**31 - 1
 

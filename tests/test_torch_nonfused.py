@@ -19,6 +19,7 @@ from mamri_tpu.perception import segmentation as jseg
 from mamri_tpu.perception.volume import synthetic_volume
 from mamri_tpu_torch.perception import gpu_ops as G
 from mamri_tpu_torch.perception import segmentation as tseg
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 FIDUCIALS = np.array([[6.0, 4.0, 5.0], [-9.0, 3.0, 1.0], [2.0, -12.0, -8.0], [-4.0, -5.0, 12.0]])
 CERTS = ("ccl_converged", "roots_complete", "blobs_complete", "count_ok", "cand_ok", "runs_ok", "compact_ok")

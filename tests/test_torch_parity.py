@@ -17,6 +17,7 @@ from mamri_tpu.perception import parity as jparity
 from mamri_tpu_torch.api import types as ttypes
 from mamri_tpu_torch.core import robot as trobot
 from mamri_tpu_torch.perception import parity as tparity
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -42,6 +42,7 @@ from mamri_tpu_torch.planning import collision as tcoll
 from mamri_tpu_torch.planning import exact as texact
 from mamri_tpu_torch.planning import trajectory as ttraj
 from mamri_tpu_torch.utils import stl as tstl
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BODY_CENTER = [0.0, 50.0, 150.0]  # a ball the zero-pose arm runs into
@@ -437,30 +438,16 @@ def test_densify_triangles_matches_jax():
 
 def test_stl_copy_matches_the_original(tmp_path):
     """`mamri_tpu_torch/utils/stl.py` is `mamri_tpu/utils/stl.py` with the
-    package renamed and the native parser's fast path (and its docstring
-    lines) taken out: nothing else may drift. It reads what it writes."""
+    package renamed, the native parser's fast path included: nothing else may
+    drift. It reads what it writes, through the native parser where it is
+    built and through the Python one, to the same triangles."""
     original = open(os.path.join(REPO, "mamri_tpu", "utils", "stl.py")).read()
     copy = open(os.path.join(REPO, "mamri_tpu_torch", "utils", "stl.py")).read()
-    native_path = '''    Binary files go through the native C++ parser (mamri_tpu.native) when the
-    toolchain is available; ASCII and fallback paths are pure Python."""
-    with open(path, "rb") as f:
-        head = f.read(5)
-        f.seek(0)
-        if head != b"solid":
-            from mamri_tpu import native
-
-            tris = native.parse_stl_native(path)
-            if tris is not None:
-                return tris
-'''
-    numpy_path = '''    Pure Python and numpy: the JAX package's native C++ fast path for binary
-    files is not ported (ROADMAP A 5), and its values are the same."""
-    with open(path, "rb") as f:
-        head = f.read(5)
-        f.seek(0)
-'''
-    assert native_path in original
-    assert copy == original.replace(native_path, numpy_path).replace("mamri_tpu", "mamri_tpu_torch")
+    assert copy == original.replace("mamri_tpu", "mamri_tpu_torch")
     tris = np.random.default_rng(0).normal(size=(7, 3, 3)).astype(np.float32)
     tstl.save_stl(str(tmp_path / "t.stl"), tris)
     np.testing.assert_array_equal(tstl.load_stl(str(tmp_path / "t.stl")), tris)
+    from mamri_tpu_torch import native
+
+    fast = native.parse_stl_native(str(tmp_path / "t.stl"))
+    assert fast is None or np.array_equal(fast, tris)

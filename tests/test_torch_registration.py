@@ -15,6 +15,7 @@ from mamri_tpu_torch.ik.lm import least_squares_lm as t_lm
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform as t_kabsch
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets as t_match
 from mamri_tpu_torch.registration.lshape import order_l_shape as t_order
+from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 ARMS = [(40.0, 20.0), (70.0, 25.0), (70.0, 20.0), (45.0, 20.0)]  # the MAMRI signatures
 
