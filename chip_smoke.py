@@ -84,8 +84,26 @@
    upload of a float32 frame, an int16 frame and the ROI window, and the
    engine tracer's report are printed. After the path's counts are read,
    every kernel is held against its twin at the frozen ROI window's shape.
+11. The engine's whole surface on the bench scene at 256^3: (a)
+   `match_mode="global"` interleaved with the default mode, 5 calls each
+   (poses bit-equal, the same launches per call, p50 of each; one global
+   call's host syncs), and the global matcher alone on the card against
+   the CPU (8 dropout trials at K = 32, one case at K = 128: equal `found`
+   and `member_ids`), timed beside the greedy matcher; (b) the state
+   methods against a `device="cpu"` engine given the same state (FK within
+   1e-4 mm, the same reports, tables and actions), timed; (c) the planned
+   keyframes on `hw.sim.simulated_hardware` on the real clock at the
+   reference's 150 ms tick, the sync loop running and a `watch` thread
+   subscribed: success, the encoder at the last keyframe, the engine's
+   angles following, the ticks, pose_cb p50 / p95 and the frames watched
+   printed; (d) every export (OBJ, glTF, HTML viewer, animated trajectory,
+   posed STLs, a 960x720 PNG) from both engines under `build/`, compared
+   (vertices, transforms and boxes within 1e-3 mm, at most 0.5 % of the
+   pixels differ) and timed; (d) runs before (c), which moves the card
+   engine's pose. Neither the exports nor the hardware loop may launch a
+   kernel.
 
-Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10) runs
+Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10, 11's global calls) runs
 with the launch counts set to 0 just before it and read just after it (for
 phase 8, the launches of its own calls are tallied); every kernel of a path
 must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
@@ -1142,6 +1160,362 @@ def phase_stream(model, vol512, vol256, card):
     return counts, window
 
 
+# --------------------------------------------- phase 11: the engine's whole surface
+ARMS = ((40.0, 20.0), (70.0, 25.0), (70.0, 20.0), (45.0, 20.0))  # the four marker signatures
+HW_TICK_S = 0.15  # the reference's control tick
+HW_SEGMENT_S = 1.0  # the simulated speed takes about this long for each keyframe's move
+
+
+def _l_local(l1, l2, offset):
+    return np.array([[0.0, 0.0, 0.0], [0.0, l2, 0.0], [l1, 0.0, 0.0]], np.float32) + np.float32(offset)
+
+
+def matcher_cases():
+    """[(label, points (K, 3), valid (K,))]: tests/test_lshape.py's 8 seeded
+    dropout trials at K = 32, and the four triplets among 116 stray blobs
+    at K = 128 (the escalated blob budget)."""
+    rng = np.random.default_rng(23)
+    cases = []
+    for trial in range(8):
+        present = rng.random(4) > 0.35
+        tris = [_l_local(a[0], a[1], rng.uniform(-150, 150, 3).astype(np.float32))
+                for a, keep in zip(ARMS, present) if keep]
+        noise = rng.uniform(-120, 120, size=(3, 3)).astype(np.float32)
+        pts = np.concatenate(tris + [noise]) if tris else noise
+        pts = pts[rng.permutation(len(pts))]
+        padded = np.zeros((32, 3), np.float32)
+        padded[:len(pts)] = pts
+        cases.append((f"dropout trial {trial}", padded, np.arange(32) < len(pts)))
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-400, 400, (128, 3)).astype(np.float32)
+    slots = rng.permutation(np.arange(64, 128))[:12]
+    pts[slots] = np.concatenate([_l_local(a[0], a[1], rng.uniform(-150, 150, 3)) for a in ARMS])
+    cases.append(("K=128", pts, np.ones(128, dtype=bool)))
+    return cases
+
+
+def _obj_vertices(path):
+    out, cur = {}, None
+    with open(path) as f:
+        for line in f:
+            if line.startswith("o "):
+                cur = line[2:].strip()
+                out[cur] = []
+            elif line.startswith("v "):
+                out[cur].append([float(x) for x in line.split()[1:]])
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _glb_positions(path):
+    from mamri_tpu_torch.utils.glb import read_glb
+
+    gltf, blob = read_glb(path)
+    out = {}
+    for node in gltf.get("nodes", []):
+        acc = gltf["accessors"][gltf["meshes"][node["mesh"]]["primitives"][0]["attributes"]["POSITION"]]
+        view = gltf["bufferViews"][acc["bufferView"]]
+        out[node["name"]] = np.frombuffer(blob[view["byteOffset"]:view["byteOffset"] + view["byteLength"]],
+                                          "<f4").reshape(-1, 3)
+    return out
+
+
+def _png_pixels(path):
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)[:, 1:].reshape(h, w, 3)
+
+
+def _close(a, b, atol, what):
+    gap = float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max()) if np.size(a) else 0.0
+    if not (np.shape(a) == np.shape(b) and gap <= atol):
+        raise AssertionError(f"{what}: card and CPU differ by {gap} (limit {atol}; shapes {np.shape(a)} "
+                             f"{np.shape(b)})")
+    return gap
+
+
+def _same_report(got, want, what):
+    """Equal line by line, each number within one unit of its last digit."""
+    import re
+
+    number = r"-?\d+\.\d+"
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    ok = len(g_lines) == len(w_lines)
+    for g, w in zip(g_lines, w_lines):
+        ok = ok and re.sub(number, "#", g) == re.sub(number, "#", w)
+        for a, b in zip(re.findall(number, g), re.findall(number, w)):
+            ok = ok and abs(float(a) - float(b)) <= 10.0 ** -len(b.split(".")[1]) * 1.0001
+    if not ok:
+        raise AssertionError(f"{what}: card and CPU reports differ:\n{got}\n---\n{want}")
+
+
+def phase_global(model, vol256, card, paths, device):
+    """(a) `match_mode="global"` at 256^3 against the default mode: the
+    pose bit-equal, the same launches per call, p50 of 5 interleaved; then
+    the matcher alone on the card against the CPU."""
+    import torch
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets, match_l_shaped_triplets_global
+
+    default, glob = MamriEngine(device=device), MamriEngine(device=device, match_mode="global")
+    for eng in (default, glob):
+        eng.estimate_pose(vol256)  # warm-up
+    # the global path's launches are tallied per call: its calls alternate with the default mode's
+    lat = {"default": [], "global": []}
+    tally = {"default": {}, "global": {}}
+    for _ in range(REPS):
+        res = {}
+        for label, eng in (("default", default), ("global", glob)):
+            eng.current_angles = np.zeros(6, np.float32)
+            t0 = time.perf_counter()
+            res[label] = with_counts(gpu_ops, tally[label], eng.estimate_pose, vol256)
+            lat[label].append((time.perf_counter() - t0) * 1e3)
+            check_pose(eng, res[label], TRUE_ANGLES, f"{label} mode 256^3")
+        got, want = res["global"], res["default"]
+        for field in ("angles_rad", "steps", "baseplate_tf"):
+            if not np.array_equal(getattr(got, field), getattr(want, field)):
+                raise AssertionError(f"global mode: {field} {getattr(got, field)} != default {getattr(want, field)}")
+        if (got.rmse_mm, got.markers_found, got.num_blobs) != (want.rmse_mm, want.markers_found, want.num_blobs):
+            raise AssertionError("global mode: the result differs from the default mode's")
+    if tally["global"] != tally["default"]:
+        raise AssertionError(f"global mode launched {tally['global']}, the default mode {tally['default']}")
+    paths["estimate_global"] = read_tally(tally["global"], DEFAULT_PATH_KERNELS[:-1], "global path")
+    glob.current_angles = np.zeros(6, np.float32)
+    res, where = syncs_in(lambda: glob.estimate_pose(vol256))
+    check_pose(glob, res, TRUE_ANGLES, "sync-debug global 256^3")
+    print(f"host syncs in one warm global estimate_pose at 256^3: {sum(where.values())} {json.dumps(where)}")
+    print(f"global mode 256^3: angles, steps, baseplate bit-equal to the default mode's in all {REPS} calls; "
+          f"launches per call {json.dumps({k: v // REPS for k, v in tally['global'].items()})} (the default mode's "
+          f"the same)")
+    print(f"estimate_pose 256^3 p50_ms default={np.median(lat['default']):.3f} global={np.median(lat['global']):.3f} "
+          f"all_ms default={[round(x, 3) for x in lat['default']]} global={[round(x, 3) for x in lat['global']]} "
+          f"(interleaved) ({card})")
+
+    dev = torch.device(device)
+    for label, pts, valid in matcher_cases():
+        args_cpu = (torch.as_tensor(pts), torch.as_tensor(valid), ARMS)
+        args_gpu = (args_cpu[0].to(dev), args_cpu[1].to(dev), ARMS)
+        got, want = match_l_shaped_triplets_global(*args_gpu), match_l_shaped_triplets_global(*args_cpu)
+        if not (torch.equal(got.found.cpu(), want.found) and torch.equal(got.member_ids.cpu(), want.member_ids)):
+            raise AssertionError(f"global matcher {label}: card {got.found.tolist()} {got.member_ids.tolist()} != "
+                                 f"CPU {want.found.tolist()} {want.member_ids.tolist()}")
+        gap = _close(got.points.cpu(), want.points, 1e-4, f"global matcher {label} points")
+        if label in ("dropout trial 0", "K=128"):
+            p50, all_ms = p50_ms(lambda: match_l_shaped_triplets_global(*args_gpu))
+            greedy_p50, greedy_all = p50_ms(lambda: match_l_shaped_triplets(*args_gpu))
+            print(f"global matcher alone {label} (K={len(pts)}): found={got.found.tolist()} p50_ms={p50:.3f} "
+                  f"all_ms={all_ms}; the greedy best-mode matcher on the same blobs p50_ms={greedy_p50:.3f} "
+                  f"all_ms={greedy_all} ({card})")
+    print(f"global matcher: card = CPU (found, member_ids; points within {gap}) on 8 dropout trials and K=128")
+
+
+def phase_state_methods(gpu, cpu, card):
+    """(b) The state methods on the card against a CPU engine with the
+    same state."""
+    angles = [0.1, -0.2, 0.3, -0.4, 0.5, -0.6]
+    gaps = {
+        "link_world_transforms": _close(gpu.link_world_transforms(), cpu.link_world_transforms(), 1e-4, "FK"),
+        "link_world_transforms(angles)": _close(gpu.link_world_transforms(angles), cpu.link_world_transforms(angles),
+                                                1e-4, "FK at given angles"),
+        "needle_tcp": _close(gpu.needle_tcp(), cpu.needle_tcp(), 1e-4, "needle TCP"),
+    }
+    rng = np.random.default_rng(2)
+    j6, j4 = (rng.normal(size=(2, 3, 3)) * 50).astype(np.float32)
+    for corrected in (False, True):
+        _same_report(gpu.describe_ik_solution(j6, j4, apply_correction=corrected),
+                     cpu.describe_ik_solution(j6, j4, apply_correction=corrected), "describe_ik_solution")
+    if gpu.pose_table(gpu.current_angles) != cpu.pose_table(cpu.current_angles):
+        raise AssertionError("pose_table: card and CPU differ")
+    acts = [{k: (v.enabled, v.reason) for k, v in e.available_actions(True, True, True).items()} for e in (gpu, cpu)]
+    if acts[0] != acts[1]:
+        raise AssertionError("available_actions: card and CPU differ")
+    timed = {
+        "link_world_transforms": p50_ms(gpu.link_world_transforms),
+        "needle_tcp": p50_ms(gpu.needle_tcp),
+        "describe_ik_solution": p50_ms(lambda: gpu.describe_ik_solution(j6, j4)),
+        f"path FK of export_trajectory_html ({len(gpu.trajectory_path)} samples)": p50_ms(gpu._path_fk),
+        "link_world_transforms (CPU engine)": p50_ms(cpu.link_world_transforms),
+    }
+    print(f"state methods: card = CPU engine (FK gaps mm {json.dumps(gaps)}; reports, pose table, actions)")
+    for name, (p50, all_ms) in timed.items():
+        print(f"state {name} p50_ms={p50:.4f} all_ms={all_ms} ({card})")
+
+
+def phase_hardware(gpu, card):
+    """(c) The hardware loop on a simulated rig on the real clock: the sync
+    loop running, a `watch` subscriber, the planned keyframes executed."""
+    import threading
+
+    from mamri_tpu_torch.hw.sim import simulated_hardware
+    from mamri_tpu_torch.perception import gpu_ops
+
+    kf_steps = np.stack([gpu.convert_angles_to_steps(k) for k in gpu.trajectory_keyframes])
+    start = np.asarray(gpu.convert_angles_to_steps(np.zeros(6, np.float32)))
+    longest = float(np.abs(np.diff(np.vstack([start, kf_steps]), axis=0)).max())
+    speed = max(1000.0, longest / HW_SEGMENT_S)
+    launches = dict(gpu_ops.LAUNCHES)
+    stack, robot, shutdown = simulated_hardware(gpu, speed_steps_per_s=speed)
+    stop_sync = stack.start_sync_loop()
+    cb_ms = []
+    engine_cb = stack.runner.pose_callback
+
+    def timed_cb(steps):
+        t0 = time.perf_counter()
+        engine_cb(steps)
+        cb_ms.append((time.perf_counter() - t0) * 1e3)
+
+    stack.runner.pose_callback = timed_cb
+    watched = []
+    watcher = threading.Thread(target=lambda: watched.extend(stack.watch(idle_timeout_s=5.0)), daemon=True)
+    watcher.start()
+    try:
+        time.sleep(0.05)  # the watcher subscribes before the task starts
+        t0 = time.perf_counter()
+        stack.execute_trajectory(list(gpu.trajectory_keyframes), timeout_s=60.0)
+        state = stack.runner.run(tick_interval_s=HW_TICK_S)
+        run_s = time.perf_counter() - t0
+        watcher.join(timeout=10.0)
+        final = stack.encoder.latest_position
+    finally:
+        stop_sync()
+        shutdown()
+    if watcher.is_alive():
+        raise AssertionError("hardware: the watcher did not see the task finish")
+    if state.outcome.value != "success":
+        raise AssertionError(f"hardware: {state.outcome.value}: {state.message}")
+    if final != kf_steps[-1].tolist():
+        raise AssertionError(f"hardware: encoder at {final}, last keyframe {kf_steps[-1].tolist()}")
+    if not np.array_equal(gpu.current_angles, gpu.convert_steps_to_angles(np.asarray(final))):
+        raise AssertionError(f"hardware: engine angles {gpu.current_angles} do not follow the encoder {final}")
+    poses = [f for f in watched if f["event"] == "pose"]
+    if not (poses and watched[-1]["event"] == "task_finished" and all("tcp_world" in f for f in poses)):
+        raise AssertionError(f"hardware: watched frames {watched[-3:]}")
+    if dict(gpu_ops.LAUNCHES) != launches:
+        raise AssertionError("hardware: the loop launched a kernel")
+    print(f"hardware: {len(kf_steps)} keyframes at {speed:.1f} steps/s in {run_s:.3f} s, {len(cb_ms)} ticks, "
+          f"pose_cb p50_ms={np.percentile(cb_ms, 50):.4f} p95_ms={np.percentile(cb_ms, 95):.4f} "
+          f"max_ms={max(cb_ms):.4f}, {len(watched)} frames watched ({len(poses)} pose), outcome success, "
+          f"no kernel launched ({card})")
+
+
+def phase_exports(gpu, cpu, card):
+    """(d) Every export from the card engine and the CPU engine, under
+    build/, compared as the CPU tests compare them, and timed."""
+    import shutil
+    import tempfile
+
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.utils.html_viewer import read_html_scene_summary
+    from mamri_tpu_torch.utils.scene import capsule_mesh
+    from mamri_tpu_torch.utils.stl import load_stl, save_stl
+
+    launches = dict(gpu_ops.LAUNCHES)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="exports-", dir=os.path.join(REPO, "build"))
+    try:
+        meshes = os.path.join(tmp, "meshes")
+        os.makedirs(meshes)
+        for i, spec in enumerate(gpu.model.specs):
+            if spec.visual_mesh and spec.name not in ("Joint4", "Needle"):  # Joint4 becomes a capsule
+                save_stl(os.path.join(meshes, spec.visual_mesh), capsule_mesh(12.0 + 4 * i, 6.0))
+        target = BODY_CENTER
+        entry = gpu.find_entry_point(BODY_CENTER).point_ras
+        ms = {}
+
+        def both(name, call):
+            out = []
+            for tag, eng in (("card", gpu), ("cpu", cpu)):
+                t0 = time.perf_counter()
+                out.append(call(eng, os.path.join(tmp, f"{tag}-{name}")))
+                if tag == "card":
+                    ms[name] = (time.perf_counter() - t0) * 1e3
+            if name != "posed" and out[0] != out[1]:  # posed: the paths written, one directory each
+                raise AssertionError(f"export {name}: card {out[0]} != CPU {out[1]}")
+            return [os.path.join(tmp, f"{tag}-{name}") for tag in ("card", "cpu")], out[0]
+
+        kw = dict(mesh_dir=meshes, target_ras=target, entry_ras=entry)
+        (a, b), summary = both("scene.obj", lambda e, p: e.export_scene(p, **kw))
+        va, vb = _obj_vertices(a), _obj_vertices(b)
+        if list(va) != list(vb):
+            raise AssertionError("export scene.obj: objects differ")
+        gap = max(_close(va[k], vb[k], 1e-3 + 1e-6, f"scene.obj {k}") for k in va)
+        (a, b), _ = both("scene.glb", lambda e, p: e.export_scene(p, **kw))
+        ga, gb = _glb_positions(a), _glb_positions(b)
+        if list(ga) != list(gb):
+            raise AssertionError("export scene.glb: nodes differ")
+        gap = max([gap] + [_close(ga[k], gb[k], 1e-3, f"scene.glb {k}") for k in ga])
+        for name, call in (("scene.html", lambda e, p: e.export_scene(p, **kw)),
+                           ("trajectory.html", lambda e, p: e.export_trajectory_html(p, **kw))):
+            (a, b), html_summary = both(name, call)
+            sa, sb = read_html_scene_summary(a), read_html_scene_summary(b)
+            if list(sa) != list(sb):
+                raise AssertionError(f"export {name}: objects differ")
+            for k in sb:
+                if k == "__anim__":
+                    gap = max(gap, _close(sa[k]["transforms"], sb[k]["transforms"], 1e-3, f"{name} transforms"))
+                else:
+                    gap = max(gap, _close(sa[k]["bbox_lo"] + sa[k]["bbox_hi"], sb[k]["bbox_lo"] + sb[k]["bbox_hi"],
+                                          1e-3, f"{name} {k} bbox"))
+        (a, b), written = both("posed", lambda e, p: e.export_posed_meshes(p, meshes))
+        names = sorted(os.path.basename(p) for p in written)
+        if not (names == sorted(os.listdir(a)) == sorted(os.listdir(b)) and len(names) == len(os.listdir(meshes))):
+            raise AssertionError(f"export_posed_meshes: {names} against {os.listdir(b)}")
+        for f in names:
+            gap = max(gap, _close(load_stl(os.path.join(a, f)), load_stl(os.path.join(b, f)), 1e-3, f"posed {f}"))
+        (a, b), size = both("scene.png", lambda e, p: e.render_scene(p, **kw))
+        pa, pb = _png_pixels(a), _png_pixels(b)
+        differ = float((pa != pb).any(-1).mean()) if pa.shape == pb.shape else 1.0
+        if not differ <= 0.005:
+            raise AssertionError(f"render_scene: {differ:.4%} of the pixels differ between card and CPU (limit 0.5%)")
+    finally:
+        shutil.rmtree(tmp)
+    if dict(gpu_ops.LAUNCHES) != launches:
+        raise AssertionError("exports launched a kernel")
+    print(f"exports: card = CPU engine (summaries, vertices, transforms and boxes within {gap} mm; {differ:.4%} of "
+          f"the {size[0]}x{size[1]} PNG's pixels differ); scene {json.dumps(summary)}; trajectory "
+          f"{json.dumps(html_summary)}; no kernel launched")
+    print(f"exports ms on the card engine: {json.dumps({k: round(v, 3) for k, v in ms.items()})} ({card})")
+
+
+def phase_engine_surface(model, vol256, card, paths, device="cuda"):
+    """Phase 11: (a) the global mode, (b) the state methods, (c) the
+    hardware loop and (d) the exports (run before (c), which moves the
+    engine's pose), on the bench scene at 256^3, on
+    `device` against a CPU engine (the card; the CPU only to rehearse the
+    phase's flow)."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+
+    t_phase = time.perf_counter()
+    phase_global(model, vol256, card, paths, device)
+    gpu = MamriEngine(device=device)
+    est = gpu.estimate_pose(vol256)
+    check_pose(gpu, est, TRUE_ANGLES, "surface scan 256^3")
+    plan = gpu.plan_heuristic_path(BODY_CENTER, gpu.find_entry_point(BODY_CENTER).point_ras, 5.0,
+                                   start_pose_steps=est.steps)
+    if not plan.success:
+        raise AssertionError(f"surface: plan_heuristic_path failed: {plan.message}")
+    cpu = MamriEngine(device="cpu")
+    cpu.load_state_from_numpy(baseplate_tf=gpu.baseplate_tf, current_angles=gpu.current_angles)
+    cpu.last_ik_error = gpu.last_ik_error
+    cpu.set_body_segmentation(gpu.body_mask(), *gpu.last_volume_geom)
+    cpu.trajectory_path = gpu.trajectory_path.copy()
+    cpu.trajectory_keyframes = gpu.trajectory_keyframes.copy()
+    phase_state_methods(gpu, cpu, card)
+    phase_exports(gpu, cpu, card)
+    phase_hardware(gpu, card)
+    print(f"phase 11 (engine surface) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1275,6 +1649,9 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), e)
     if failures:
         raise AssertionError("kernels disagree with their twins at the ROI window:\n" + "\n".join(failures))
+
+    # ---- phase 11: the global matcher, the state methods, the hardware loop and the exports
+    phase_engine_surface(model, vol256, card, paths)
 
     main_t = timings["256^3"]
     kernels = []

@@ -1,22 +1,32 @@
-"""mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu's scan -> pose path
-and its planning layer.
+"""mamri_tpu_torch — the PyTorch + CUDA port of mamri_tpu: scan -> pose,
+planning, streaming, scene export and the hardware loop.
 
 `mamri_tpu` (JAX/Pallas) stays the reference; this package is held against
 it on identical inputs. It imports torch and numpy, never jax, and nothing
 of `mamri_tpu`: it keeps its own copies of what it needs from there
-(`api/types.py`, `resources/mamri_arm.json`, `perception/volume.py`,
-`utils/stl.py`).
+(`api/types.py`, `api/playback.py`, `resources/mamri_arm.json`,
+`perception/volume.py`, the readers and writers, `hw/`, `utils/stl.py` and
+the scene writers).
 
 Layering mirrors `mamri_tpu`:
-  core/          4x4 algebra, robot model + FK, unit conversion
+  core/          4x4 algebra, robot model + FK (device and host), units
   perception/    Volume, segmentation, and the hand-written CUDA kernels
-                 (`gpu_ops`, sources in `csrc/`) with their plain twins
-  registration/  L-shape triplet matching + Horn/Kabsch rigid fit
+                 (`gpu_ops`, sources in `csrc/`) with their plain twins;
+                 volume readers and writers
+  registration/  L-shape triplet matching (`best`, `strict`, `global`) +
+                 Horn/Kabsch rigid fit
   ik/            batched bounded Levenberg-Marquardt, full-chain pose IK
   planning/      collision world, entry search, trajectory goal IK,
                  heuristic path, exact validation
-  utils/         STL ingest and surface sampling
-  api/           MamriEngine (single, batched and async estimation, planning)
+  hw/            serial transports, controller and encoder links, the
+                 closed-loop task runner, sync monitor, pose stream and a
+                 simulated rig: host code over the engine, which feeds each
+                 control tick from the host FK
+  utils/         STL ingest, tracer, and the scene writers (OBJ, glTF,
+                 WebGL viewer, PNG rasterizer)
+  api/           MamriEngine (single, batched and async estimation,
+                 planning, state, scene export, `attach_hardware` /
+                 HardwareStack), PoseTracker, playback
 
 Geometry runs in strict float32 on the card: both TF32 switches are turned
 off when the package is imported, for the reason the JAX package pins

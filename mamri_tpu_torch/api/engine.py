@@ -1,37 +1,42 @@
 """MamriEngine — mamri_tpu's facade on PyTorch: pose estimation (single,
-batched, asynchronous), entry search and collision-checked planning.
+batched, asynchronous), entry search and collision-checked planning, scene
+export and the hardware loop.
 
-Port of `_LRUCache`, `MamriEngine.__init__`, `pipeline_fn`, `clear_caches`,
-`_get_pipeline`, `_escalate_seg_params`, `estimate_pose`,
-`estimate_pose_async` / `_collect`, `_finish_estimate`,
-`estimate_pose_batch` (mamri_tpu/api/engine.py:62-681), of the baseplate
-and pose state methods (:683-711, 1241-1260), and of the body mask,
-segmentation export, conversion and planning methods (:970-1238), with the
-reference's tracer spans. The per-volume program
-(segmentation -> triplet matching -> baseplate fit -> full-chain IK -> motor
-steps) runs eagerly on the engine's device, cached per (shape, params) as the
-reference caches its jitted programs; the host reads the certificates and
-results with one synchronization per attempt (`_fetch`) and escalates the
-segmentation budgets exactly as the reference does. A batch is a loop of
+Port of `mamri_tpu/api/engine.py` (`_LRUCache`, `MamriEngine`,
+`HardwareStack`), every public method of both, with the reference's tracer
+spans. The per-volume program (segmentation -> triplet matching in the
+`best`, `strict` or `global` mode -> baseplate fit -> full-chain IK -> motor
+steps) runs eagerly on the engine's device, cached per (shape, params) as
+the reference caches its jitted programs; the host reads the certificates
+and results with one synchronization per attempt (`_fetch`) and escalates
+the segmentation budgets exactly as the reference does. A batch is a loop of
 that program over its volumes on one stream, fetched once per batch (and
 once per escalation round); planning builds the collision world once per
 body on the engine's device and returns each result through one fetch.
+`link_world_transforms` and the exports run the FK on the engine's device
+(a path's samples in one vmapped call) and fetch once; the hardware loop's
+per-tick paths (`attach_hardware`'s pose callback, `HardwareStack.status`)
+use the host FK and never touch the device.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import threading
+import time
 from collections import OrderedDict
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
-from mamri_tpu_torch.api.types import PoseEstimate, TrajectoryPlan
-from mamri_tpu_torch.core.robot import RobotModel, load_robot_model
+from mamri_tpu_torch.api.types import ActionState, PoseEstimate, TrajectoryPlan
+from mamri_tpu_torch.core import transforms
+from mamri_tpu_torch.core.robot import RobotModel, fk_all_links, fk_all_links_host, load_robot_model
 from mamri_tpu_torch.core.units import angles_to_steps, angles_to_steps_host, steps_to_angles_host
 from mamri_tpu_torch.ik.residuals import solve_full_chain_ik
 from mamri_tpu_torch.perception.segmentation import SegmentationParams, segment_volume
@@ -42,7 +47,7 @@ from mamri_tpu_torch.planning.geometry import ArmGeometry, build_arm_geometry
 from mamri_tpu_torch.planning.heuristic import check_path_collisions, heuristic_keyframes, interpolate_path
 from mamri_tpu_torch.planning.trajectory import TrajectoryIKResult, solve_trajectory_ik
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform
-from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets
+from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets, match_l_shaped_triplets_global
 from mamri_tpu_torch.utils.trace import Tracer
 
 logger = logging.getLogger(__name__)
@@ -124,12 +129,12 @@ class MamriEngine:
         jit_cache_size: int = 32,
         device="cuda",
     ):
-        if match_mode == "global":
-            raise NotImplementedError(
-                "match_mode='global' is not ported yet: see ROADMAP.md, queue A, 'the global matcher'"
+        if match_mode not in ("best", "strict", "global"):
+            raise ValueError(
+                f"match_mode must be 'best' (min-error greedy), 'strict' "
+                f"(reference first-match greedy) or 'global' (exhaustive "
+                f"assignment), got {match_mode!r}"
             )
-        if match_mode not in ("best", "strict"):
-            raise ValueError(f"match_mode must be 'best' or 'strict', got {match_mode!r}")
         self.device = _resolve_device(device)
         self.model: RobotModel = load_robot_model(config_path, device=self.device)
         # part clouds for the collision checks (STL parts from `mesh_dir` where
@@ -138,6 +143,8 @@ class MamriEngine:
         self.mesh_dir = mesh_dir
         self._exact_parts = None  # dense hulls for validate_plan_exact, built on first use
         self._steps_per_rev = self.model.steps_per_rev.cpu().numpy()
+        self._needle_tip = self.model.needle_tip.cpu().numpy()  # the exports place the needle on the host
+        self._needle_axis = self.model.needle_axis.cpu().numpy()
         # the reference's defaults: a 3-half-sweep CCL schedule [yz, x, yz] +
         # the fixed-point certificate, 128 candidate roots + the completeness
         # certificates; estimate_pose escalates whatever fails
@@ -162,6 +169,7 @@ class MamriEngine:
         self.trajectory_path: Optional[np.ndarray] = None
         self.trajectory_keyframes: Optional[np.ndarray] = None
         self.last_estimated_steps: Optional[np.ndarray] = None
+        self.hardware = None  # HardwareStack, attached on demand
         self._pipeline_cache = _LRUCache(jit_cache_size)
 
     def load_state_from_numpy(self, baseplate_tf=None, saved_baseplate=None, current_angles=None) -> None:
@@ -199,6 +207,229 @@ class MamriEngine:
     def zero_robot(self) -> None:
         self.current_angles = np.zeros_like(self.current_angles)
 
+    def _base_or_eye(self) -> np.ndarray:
+        return self.baseplate_tf if self.baseplate_tf is not None else np.eye(4, dtype=np.float32)
+
+    def _link_world_transforms_dev(self, angles_rad=None) -> torch.Tensor:
+        """(L, 4, 4) float32 FK of every link on the engine's device, from the
+        baseplate (the identity before one is known)."""
+        a = self.current_angles if angles_rad is None else np.asarray(angles_rad, dtype=np.float32)
+        f32 = torch.float32
+        return fk_all_links(self.model, self._upload(a, f32), self._upload(self._base_or_eye(), f32))
+
+    def link_world_transforms(self, angles_rad=None) -> np.ndarray:
+        """(L, 4, 4) world transforms of every link at the current (or given)
+        angles: FK on the engine's device, one fetch."""
+        return self._fetch({"tfs": self._link_world_transforms_dev(angles_rad)})["tfs"]
+
+    def needle_tcp(self, angles_rad=None) -> np.ndarray:
+        """World transform of the needle TCP."""
+        return self.link_world_transforms(angles_rad)[self.model.link_index("Needle")]
+
+    def _path_fk(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(S, L, 4, 4) FK of every sample of `trajectory_path` and the (S, 3)
+        needle tips: one vmapped FK on the engine's device, one fetch."""
+        f32 = torch.float32
+        base = self._upload(self._base_or_eye(), f32)
+        tfs = vmap(lambda a: fk_all_links(self.model, a, base))(self._upload(self.trajectory_path, f32))
+        ntf = tfs[:, self.model.link_index("Needle")]
+        tips = torch.einsum("sij,j->si", ntf[:, :3, :3], self.model.needle_tip) + ntf[:, :3, 3]
+        out = self._fetch({"tfs": tfs, "tips": tips})
+        return out["tfs"], out["tips"]
+
+    # ---------------------------------------------------------------- scene export
+    def export_posed_meshes(self, out_dir: str, mesh_dir: str, angles_rad=None) -> list:
+        """Write the robot's visual meshes FK-posed at the current (or given)
+        angles as binary STLs; returns the written paths. Missing mesh files
+        are skipped."""
+        from mamri_tpu_torch.utils.stl import load_stl, save_stl, transform_triangles
+
+        os.makedirs(out_dir, exist_ok=True)
+        tfs = self.link_world_transforms(angles_rad)
+        written = []
+        for i, spec in enumerate(self.model.specs):
+            if not spec.visual_mesh:
+                continue
+            src = os.path.join(mesh_dir, spec.visual_mesh)
+            if not os.path.exists(src):
+                logger.info("skipping missing mesh %s", src)
+                continue
+            dst = os.path.join(out_dir, f"{spec.name}_posed.stl")
+            save_stl(dst, transform_triangles(load_stl(src), tfs[i]))
+            written.append(dst)
+        return written
+
+    def _link_meshes(self, mesh_dir: Optional[str]) -> list:
+        """[(link name, link-local triangles, link index)] of every link but
+        the needle: its STL from `mesh_dir` where there is one, else a
+        capsule as long as the offset to its child."""
+        from mamri_tpu_torch.planning.geometry import DEFAULT_PART_RADIUS_MM, MIN_PART_LENGTH_MM
+        from mamri_tpu_torch.utils.scene import capsule_mesh
+        from mamri_tpu_torch.utils.stl import load_stl
+
+        meshes = []
+        for i, spec in enumerate(self.model.specs):
+            if spec.name == "Needle":
+                continue  # a generated cylinder (the reference's Needle.STL is stripped)
+            tris = None
+            if mesh_dir is not None and spec.visual_mesh:
+                src = os.path.join(mesh_dir, spec.visual_mesh)
+                if os.path.exists(src):
+                    tris = load_stl(src)
+            if tris is None:
+                child = next((s for s in self.model.specs if s.parent == i), None)
+                length = float(np.linalg.norm(child.offset_mm)) if child is not None else 0.0
+                tris = capsule_mesh(max(length, MIN_PART_LENGTH_MM), DEFAULT_PART_RADIUS_MM)
+            meshes.append((spec.name, tris, i))
+        return meshes
+
+    def _body_surface(self, body_surface: str):
+        """The segmented body's surface (exposed voxel faces, or "smooth":
+        marching tetrahedra), or None without a body."""
+        from mamri_tpu_torch.utils.scene import marching_tetrahedra_mesh, voxel_surface_mesh
+
+        if not self._has_body():
+            return None
+        spacing, origin = self.last_volume_geom
+        surface_fn = marching_tetrahedra_mesh if body_surface == "smooth" else voxel_surface_mesh
+        return surface_fn(self.last_segmentation["body_mask"], spacing, origin)
+
+    def _scene_objects(
+        self,
+        mesh_dir: Optional[str] = None,
+        angles_rad=None,
+        include_body: bool = True,
+        include_trajectory: bool = True,
+        target_ras=None,
+        entry_ras=None,
+        needle_length_mm: float = 100.0,
+        needle_radius_mm: float = 1.5,
+        body_surface: str = "voxel",
+    ):
+        """The 3-D scene as (named triangle soups, named polylines): the
+        FK-posed links, the needle cylinder, the body surface, the planned
+        path's needle-tip polyline and the entry -> target segment."""
+        from mamri_tpu_torch.utils.scene import cylinder_mesh
+        from mamri_tpu_torch.utils.stl import transform_triangles
+
+        tfs = self.link_world_transforms(angles_rad)
+        objects = [(name, transform_triangles(tris, tfs[i])) for name, tris, i in self._link_meshes(mesh_dir)]
+        # the needle shaft from the config's tip and axis on the Needle link frame
+        ntf = tfs[self.model.link_index("Needle")]
+        tip = (ntf[:3, :3] @ self._needle_tip) + ntf[:3, 3]
+        axis = ntf[:3, :3] @ self._needle_axis
+        axis = axis / max(float(np.linalg.norm(axis)), 1e-9)
+        objects.append(("Needle", cylinder_mesh(tip, tip + axis * needle_length_mm, needle_radius_mm)))
+        if include_body:
+            body = self._body_surface(body_surface)
+            if body is not None:
+                objects.append(("Body", body))
+
+        polylines = []
+        if include_trajectory and self.trajectory_path is not None:
+            polylines.append(("TrajectoryTipPath", self._path_fk()[1]))
+        if target_ras is not None and entry_ras is not None:
+            polylines.append(
+                ("InsertionSegment", np.stack([np.asarray(entry_ras), np.asarray(target_ras)]).astype(np.float32))
+            )
+        return objects, polylines
+
+    def export_scene(self, path: str, **scene_kw) -> dict:
+        """Write the assembled scene (`_scene_objects`) as Wavefront OBJ,
+        binary glTF (`.glb`) or a self-contained WebGL viewer (`.html`).
+        Returns {object name: triangle / vertex count}."""
+        from mamri_tpu_torch.utils.glb import write_glb
+        from mamri_tpu_torch.utils.html_viewer import write_html_scene
+        from mamri_tpu_torch.utils.scene import write_obj
+
+        objects, polylines = self._scene_objects(**scene_kw)
+        lower = path.lower()
+        if lower.endswith(".glb"):
+            writer = write_glb
+        elif lower.endswith((".html", ".htm")):
+            writer = write_html_scene
+        else:
+            writer = write_obj
+        writer(path, objects, polylines)
+        summary = {name: int(len(t)) for name, t in objects}
+        summary.update({name: int(len(p)) for name, p in polylines})
+        return summary
+
+    def export_trajectory_html(
+        self,
+        path: str,
+        mesh_dir: Optional[str] = None,
+        target_ras=None,
+        entry_ras=None,
+        needle_length_mm: float = 100.0,
+        needle_radius_mm: float = 1.5,
+        body_surface: str = "voxel",
+        interval_ms: int = 50,
+    ) -> dict:
+        """Write an animated viewer of the planned trajectory: link meshes
+        once in link-local frames, per-frame transforms from the FK over
+        `trajectory_path`, a frame slider and play / pause at `interval_ms`."""
+        from mamri_tpu_torch.utils.html_viewer import write_html_scene
+        from mamri_tpu_torch.utils.scene import cylinder_mesh
+
+        if self.trajectory_path is None:
+            raise RuntimeError("no trajectory planned; run plan_heuristic_path first")
+        tfs, tips = self._path_fk()
+        objects = self._link_meshes(mesh_dir)
+        # the needle shaft in the Needle link's local frame
+        tip = self._needle_tip.astype(np.float64)
+        axis = self._needle_axis.astype(np.float64)
+        axis = axis / max(float(np.linalg.norm(axis)), 1e-9)
+        objects.append(
+            ("Needle", cylinder_mesh(tip, tip + axis * needle_length_mm, needle_radius_mm),
+             self.model.link_index("Needle"))
+        )
+        body = self._body_surface(body_surface)
+        if body is not None:
+            objects.append(("Body", body))
+        polylines = [("TrajectoryTipPath", tips)]
+        if target_ras is not None and entry_ras is not None:
+            polylines.append(
+                ("InsertionSegment", np.stack([np.asarray(entry_ras), np.asarray(target_ras)]).astype(np.float32))
+            )
+        write_html_scene(
+            path, objects, polylines,
+            anim={"transforms": tfs, "interval_ms": interval_ms},
+            title="mamri trajectory simulation",
+        )
+        summary = {name: int(len(t)) for name, t, *_ in objects}
+        summary["frames"] = int(tfs.shape[0])
+        return summary
+
+    def render_scene(
+        self,
+        path: str,
+        mesh_dir: Optional[str] = None,
+        angles_rad=None,
+        width: int = 960,
+        height: int = 720,
+        azim_deg: float = 35.0,
+        elev_deg: float = 22.0,
+        target_ras=None,
+        entry_ras=None,
+        body_surface: str = "voxel",
+    ) -> Tuple[int, int]:
+        """Render the assembled scene (`export_scene`'s contents) to a PNG
+        with the numpy rasterizer of `utils/render.py`; returns (width,
+        height)."""
+        from mamri_tpu_torch.utils.render import rasterize, write_png
+
+        objects, polylines = self._scene_objects(
+            mesh_dir=mesh_dir,
+            angles_rad=angles_rad,
+            target_ras=target_ras,
+            entry_ras=entry_ras,
+            body_surface=body_surface,
+        )
+        img = rasterize(objects, polylines, width=width, height=height, azim_deg=azim_deg, elev_deg=elev_deg)
+        write_png(path, img)
+        return (width, height)
+
     def save_state(self, path: str) -> None:
         """Checkpoint the engine's scene state (baseplate, pose, saved
         baseplate) as `.npz` + `.meta.json`, in the reference's format."""
@@ -230,13 +461,16 @@ class MamriEngine:
         arm_lengths = self._arm_lengths
         bp_local = model.marker_local[model.link_index("Baseplate")]
         ik_iters, ik_restarts = self.ik_iters, self.ik_restarts
-        strict = self.match_mode == "strict"
+        match_mode = self.match_mode
 
         def pipeline(data, spacing, origin, saved_tf, use_saved, have_saved, apply_correction, current_angles):
             seg = segment_volume(data, spacing, origin, seg_params)
-            matches = match_l_shaped_triplets(
-                seg.centroids_ras, seg.blob_valid, arm_lengths, strict_reference_order=strict
-            )
+            if match_mode == "global":
+                matches = match_l_shaped_triplets_global(seg.centroids_ras, seg.blob_valid, arm_lengths)
+            else:
+                matches = match_l_shaped_triplets(
+                    seg.centroids_ras, seg.blob_valid, arm_lengths, strict_reference_order=match_mode == "strict"
+                )
             bp_found = matches.found[0]
             # baseplate: Y-flatten the detected markers, then the rigid fit
             bp_pts = matches.points[0]
@@ -829,3 +1063,350 @@ class MamriEngine:
         out["fast_checker_flagged"] = fast_flagged
         out["over_conservative"] = bool(fast_flagged and out["collision_free"]) if fast_flagged is not None else None
         return out
+
+    # ---------------------------------------------------------------- observability, gating, tables
+    def describe_ik_solution(self, joint6_targets, joint4_targets=None, apply_correction: bool = False) -> str:
+        """Per-marker predicted-vs-target report at the current pose (the
+        reference's `_log_ik_solution_details`): the markers placed by FK
+        and `transforms.apply` on the engine's device, one fetch."""
+        if self.baseplate_tf is None:
+            return "no baseplate transform; run estimate_pose first"
+        lines = ["--- IK Solution Details ---"]
+        for name, angle in zip(self.model.articulated_names, np.rad2deg(self.current_angles)):
+            lines.append(f"  - {name}: {angle:.2f} deg")
+        if self.last_ik_error is not None:
+            lines.append(f"RMSE: {self.last_ik_error:.4f} mm")
+        tfs = self._link_world_transforms_dev()
+        correction = self._upload(np.array([-1.0, -1.0, 1.0], dtype=np.float32))
+        compared = [("Joint6", joint6_targets, apply_correction)]
+        if joint4_targets is not None:
+            compared.append(("Joint4", joint4_targets, False))
+        predicted = {}
+        for link_name, _, corrected in compared:
+            idx = self.model.link_index(link_name)
+            local = self.model.marker_local[idx] * correction if corrected else self.model.marker_local[idx]
+            predicted[link_name] = transforms.apply(tfs[idx], local)
+        predicted = self._fetch(predicted)
+        for link_name, targets, _ in compared:
+            lines.append(f"--- Comparison for {link_name} markers ---")
+            for i, (p, t) in enumerate(zip(predicted[link_name], np.asarray(targets))):
+                err = float(np.linalg.norm(p - t))
+                lines.append(
+                    f"  M{i+1}: target ({t[0]:.2f}, {t[1]:.2f}, {t[2]:.2f})  "
+                    f"predicted ({p[0]:.2f}, {p[1]:.2f}, {p[2]:.2f})  err {err:.3f} mm"
+                )
+        return "\n".join(lines)
+
+    def available_actions(
+        self,
+        have_volume: bool = False,
+        have_target: bool = False,
+        have_entry: bool = False,
+    ) -> Dict[str, ActionState]:
+        """The reference's button gating (`_checkAllButtons`), headless: one
+        `ActionState` per user-facing action, with the reference's text as
+        the reason. The caller passes what it holds (a volume, a target, an
+        entry); the rest (model built, trajectory planned, connections, a
+        running task) is read from the engine and its attached hardware."""
+        model_built = self.baseplate_tf is not None
+        planned = self.trajectory_path is not None
+        hw = self.hardware
+        mc = hw is not None and hw.controller.is_connected
+        enc = hw is not None and hw.encoder.is_connected
+        executing = hw is not None and hw.runner.is_active
+
+        def state(enabled, on, off):
+            return ActionState(bool(enabled), on if enabled else off)
+
+        idle = state(not executing, "Ready.", "A robot task is executing.")
+        return {
+            "estimate_pose": state(
+                have_volume,
+                "Run fiducial detection and robot model rendering.",
+                "Select an input volume.",
+            ),
+            "plan_trajectory": state(
+                have_target and have_entry and model_built,
+                "Plan a collision-aware trajectory.",
+                "Needs a target point, an entry point, and a pose estimate.",
+            ),
+            "zero_robot": state(
+                model_built,
+                "Sets all robot joint angles to zero in the simulation only.",
+                "Run 'Start robot pose estimation' first to build the model.",
+            ),
+            "playback": state(
+                planned, "Scrub / play the planned trajectory.", "No trajectory planned."
+            ),
+            "connect_controller": idle,
+            "refresh_ports": idle,
+            "connect_encoder": idle,
+            "execute_trajectory": state(
+                mc and self.trajectory_keyframes is not None and not executing,
+                "Execute the planned trajectory on hardware.",
+                "Connect the motor controller, plan a trajectory, and stop any running task.",
+            ),
+            "stop_trajectory": state(
+                executing, "Stop the running robot task.", "No robot task is executing."
+            ),
+            "return_to_zero": state(
+                mc and not executing,
+                "Home all joints to zero.",
+                "Connect the motor controller and stop any running task.",
+            ),
+            "move_to_pose": state(
+                mc and not executing and self.last_estimated_steps is not None,
+                "Move the robot to the last estimated pose.",
+                "Needs a connected motor controller, no running task, and a pose estimate.",
+            ),
+            "manual_control": state(
+                mc and not executing,
+                "Jog individual joints.",
+                "Connect the motor controller and stop any running task.",
+            ),
+            "zero_hardware": state(
+                mc and enc and not executing,
+                "Zero the encoder and motor controller hardware.",
+                "Connect both encoder and motor controller to enable.",
+            ),
+            "encoder_command": state(
+                enc and not executing,
+                "Sends a manual command to the encoder.",
+                "Connect to the encoder and stop any running tasks to enable.",
+            ),
+        }
+
+    def pose_table(self, pose_rad=None, title: str = "Pose") -> list:
+        """Rows of the reference's pose tables: a header, then (joint, steps,
+        degrees) per articulated joint, "..." without a pose; steps as
+        str(int), degrees as %.2f."""
+        names = self.model.articulated_names
+        rows = [(title, "Steps", "Degrees (°)")]
+        if pose_rad is None:
+            rows += [(n, "...", "...") for n in names]
+            return rows
+        pose = np.asarray(pose_rad, dtype=np.float64)
+        steps = self.convert_angles_to_steps(pose)
+        rows += [(n, str(int(s)), f"{math.degrees(a):.2f}") for n, s, a in zip(names, steps, pose)]
+        return rows
+
+    def playback(self, path=None, on_pose=None):
+        """A playback cursor over the planned (or given) path that pushes each
+        pose to `on_pose` (`set_pose` by default)."""
+        from mamri_tpu_torch.api.playback import TrajectoryPlayback
+
+        p = path if path is not None else self.trajectory_path
+        if p is None:
+            raise RuntimeError("no trajectory planned; run plan_heuristic_path first")
+        return TrajectoryPlayback(p, on_pose=on_pose or self.set_pose)
+
+    # ---------------------------------------------------------------- hardware
+    @staticmethod
+    def available_serial_ports():
+        from mamri_tpu_torch.hw.transport import list_serial_ports
+
+        return list_serial_ports()
+
+    def attach_hardware(self, controller_transport, encoder_transport):
+        """Bind the serial (or simulated) links and build the executor stack.
+
+        Every control tick converts the encoder's steps to angles, sets the
+        engine's pose and publishes one frame on the stack's `PoseStream`;
+        the needle's world position in that frame comes from the host FK
+        (`fk_all_links_host`): a device FK would add a launch chain and a
+        synchronization to every 150 ms tick of the control loop."""
+        from mamri_tpu_torch.hw.devices import EncoderLink, MotorControllerLink
+        from mamri_tpu_torch.hw.executor import RobotTaskRunner
+        from mamri_tpu_torch.hw.stream import PoseStream
+        from mamri_tpu_torch.hw.sync import SyncMonitor
+
+        controller = MotorControllerLink(controller_transport, motor_letters=self.model.motor_letters)
+        encoder = EncoderLink(encoder_transport, num_joints=self.model.num_joints)
+        if not controller.handshake():
+            raise RuntimeError("motor controller handshake failed")
+        if not encoder.handshake():
+            controller.disconnect()
+            raise RuntimeError("encoder handshake failed")
+
+        stream = PoseStream()
+        runner = RobotTaskRunner(
+            controller,
+            encoder,
+            angles_to_steps=lambda a: self.convert_angles_to_steps(np.asarray(a)),
+        )
+
+        def pose_cb(steps):
+            angles = self.convert_steps_to_angles(np.asarray(steps))
+            self.set_pose(angles)
+            frame = {
+                "event": "pose",
+                "t": time.time(),
+                "steps": [int(s) for s in np.asarray(steps)],
+                "angles_deg": np.rad2deg(angles).round(3).tolist(),
+            }
+            st = runner.state
+            if st is not None:
+                frame["mode"] = st.mode
+                frame["target_steps"] = [int(s) for s in st.target_steps]
+                if st.keyframes is not None:
+                    frame["keyframe_index"] = st.keyframe_index
+                    frame["num_keyframes"] = len(st.keyframes)
+            if self.baseplate_tf is not None:
+                tfs = fk_all_links_host(self.model, angles, self.baseplate_tf)
+                frame["tcp_world"] = tfs[self.model.link_index("Needle")][:3, 3].round(3).tolist()
+            stream.publish(frame)
+
+        def finish_cb(state):
+            stream.publish(
+                {
+                    "event": "task_finished",
+                    "t": time.time(),
+                    "mode": state.mode,
+                    "outcome": state.outcome.value,
+                    "message": state.message,
+                }
+            )
+
+        runner.pose_callback = pose_cb
+        runner.finish_callback = finish_cb
+        sync = SyncMonitor(controller, encoder)
+        self.hardware = HardwareStack(
+            controller=controller, encoder=encoder, runner=runner, sync=sync,
+            engine=self, stream=stream,
+        )
+        return self.hardware
+
+
+class HardwareStack:
+    """The connected hardware bundle (controller + encoder + executor + sync
+    + the live pose stream); port of the reference's, its host FK included."""
+
+    def __init__(self, controller, encoder, runner, sync, engine=None, stream=None):
+        self.controller = controller
+        self.encoder = encoder
+        self.runner = runner
+        self.sync = sync
+        self.engine = engine
+        # live pose pub/sub fed by the executor's per-tick callback
+        # (attach_hardware); None only for hand-built stacks
+        self.stream = stream
+
+    def status(self) -> dict:
+        """Live status: encoder / controller / target steps, the needle's
+        world position (host FK of the controller's steps), the IK RMSE.
+        Writes a 'P' query: for the controlling thread only."""
+        encoder_steps = self.encoder.latest_position if self.encoder.is_connected else None
+        controller_steps = self.controller.query_positions() if self.controller.is_connected else None
+        target = None
+        if self.runner.state is not None:
+            target = self.runner.state.target_steps.tolist()
+        out = {
+            "encoder_steps": encoder_steps,
+            "controller_steps": controller_steps,
+            "target_steps": target,
+            "task_active": self.runner.is_active,
+            "ik_error_mm": self.engine.last_ik_error if self.engine else None,
+            "tcp_world": None,
+        }
+        if self.engine is not None and controller_steps is not None and self.engine.baseplate_tf is not None:
+            angles = self.engine.convert_steps_to_angles(np.asarray(controller_steps))
+            tfs = fk_all_links_host(self.engine.model, angles, self.engine.baseplate_tf)
+            out["tcp_world"] = tfs[self.engine.model.link_index("Needle")][:3, 3].tolist()
+        return out
+
+    def passive_status(self) -> dict:
+        """A status that is safe from watcher threads: reads only the
+        encoder's listener state and the runner's fields, never writes the
+        single-writer serial command channel."""
+        st = self.runner.state
+        return {
+            "event": "status",
+            "encoder_steps": self.encoder.latest_position if self.encoder.is_connected else None,
+            "task_active": self.runner.is_active,
+            "target_steps": None if st is None else [int(s) for s in st.target_steps],
+            "outcome": None if st is None else st.outcome.value,
+        }
+
+    def watch(self, max_frames=None, idle_timeout_s: float = 5.0):
+        """Subscribe to the live pose stream and yield its frames; the
+        subscription closes when the generator does."""
+        if self.stream is None:
+            raise RuntimeError("this HardwareStack has no pose stream attached")
+        with self.stream.subscribe() as sub:
+            yield from sub.frames(max_frames=max_frames, idle_timeout_s=idle_timeout_s)
+
+    def joint_status_table(self, st: Optional[dict] = None) -> list:
+        """Rows of the reference's live joint-status table: per joint,
+        encoder / controller / target steps, "..." where a source is
+        unavailable. Pass a `status()` snapshot to avoid a second 'P'
+        round trip."""
+        if st is None:
+            st = self.status()
+        names = (
+            self.engine.model.articulated_names
+            if self.engine is not None
+            else tuple(f"J{i + 1}" for i in range(6))
+        )
+        rows = [("Joint", "Encoder (steps)", "Controller (steps)", "Target (steps)")]
+
+        def col(values, i):
+            return "..." if values is None else str(int(values[i]))
+
+        rows += [
+            (n, col(st["encoder_steps"], i), col(st["controller_steps"], i), col(st["target_steps"], i))
+            for i, n in enumerate(names)
+        ]
+        return rows
+
+    def move_to_pose(self, steps, **kw):
+        return self.runner.start("move_to_pose", target_steps=steps, **kw)
+
+    def execute_trajectory(self, keyframes, **kw):
+        return self.runner.start("trajectory", keyframes=keyframes, **kw)
+
+    def return_to_zero(self, num_joints: int = 6, **kw):
+        return self.runner.start("homing", target_steps=[0] * num_joints, **kw)
+
+    def jog(self, joint_index: int, delta_steps: int, **kw):
+        current = self.controller.query_positions()
+        if current is None:
+            raise RuntimeError("could not read current position for jog")
+        target = list(current)
+        target[joint_index] += delta_steps
+        return self.runner.start("jog", target_steps=target, **kw)
+
+    def stop(self):
+        self.runner.request_stop()
+
+    def zero_hardware(self):
+        """'R' to the encoder + 'S0,...' to the controller."""
+        if not (self.encoder.is_connected and self.controller.is_connected):
+            raise RuntimeError("both encoder and controller must be connected to zero hardware")
+        self.encoder.reset_counters()
+        self.controller.zero_counters()
+
+    def start_sync_loop(self, interval_s: float = 0.25):
+        """Run the encoder <-> controller sync monitor on a background thread
+        (the reference's 250 ms sync timer); returns a stop() callable."""
+        stop = threading.Event()
+
+        def loop():
+            while not stop.is_set():
+                try:
+                    self.sync.step()
+                except Exception:
+                    logger.exception("sync step failed; continuing")
+                stop.wait(interval_s)
+
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+
+        def stopper():
+            stop.set()
+            t.join(timeout=1.0)
+
+        return stopper
+
+    def disconnect(self):
+        self.encoder.disconnect()
+        self.controller.disconnect()

@@ -91,6 +91,14 @@ class RobotModel:
         pairs = [(s.joint_index, i) for i, s in enumerate(self.specs) if s.joint_index >= 0]
         return tuple(i for _, i in sorted(pairs))
 
+    @property
+    def articulated_names(self) -> Tuple[str, ...]:
+        return tuple(self.specs[i].name for i in self.articulated_links)
+
+    @property
+    def motor_letters(self) -> Tuple[str, ...]:
+        return tuple(self.specs[i].motor_letter for i in self.articulated_links)
+
     def spec(self, name: str) -> LinkSpec:
         return self.specs[self.link_index(name)]
 

@@ -557,3 +557,44 @@ def test_upload_of_a_strided_window_is_staged_before_it_returns(cuda, dtype):
     torch.cuda.synchronize()
     assert got.dtype == torch.from_numpy(want).dtype and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("k", [32, 64, 128])
+def test_global_matcher_cuda_equals_cpu(cuda, k):
+    """The global matcher on the card against the CPU: the four triplets
+    (and a tied twin of the last) among stray blobs, every slot valid."""
+    from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets_global
+
+    arms = [(40.0, 20.0), (70.0, 25.0), (70.0, 20.0), (45.0, 20.0)]
+    rng = np.random.default_rng(k)
+    pts = rng.uniform(-400, 400, (k, 3)).astype(np.float32)
+    tris = [np.array([[0, 0, 0], [0, b, 0], [a, 0, 0]], np.float32) + np.float32(rng.integers(-150, 150, 3))
+            for a, b in arms]
+    tris.append(tris[-1] + np.float32([0, 300, 0]))
+    pts[rng.permutation(k)[:15]] = np.concatenate(tris)
+    valid = torch.ones(k, dtype=torch.bool)
+    want = match_l_shaped_triplets_global(torch.as_tensor(pts), valid, arms)
+    got = match_l_shaped_triplets_global(torch.as_tensor(pts).to(cuda), valid.to(cuda), arms)
+    assert bool(want.found.all())
+    assert torch.equal(got.found.cpu(), want.found) and torch.equal(got.member_ids.cpu(), want.member_ids)
+    assert float((got.points.cpu() - want.points).abs().max()) <= 1e-4
+
+
+def test_engine_fk_methods_cuda_equal_cpu(cuda):
+    """`link_world_transforms`, `needle_tcp` and the path FK of the
+    trajectory export on the card against a CPU engine with the same
+    state, within 1e-4 mm."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+
+    engines = [MamriEngine(device=cuda), MamriEngine(device="cpu")]
+    base = np.eye(4, dtype=np.float32)
+    base[:3, 3] = [-60.0, -120.0, 5.0]
+    path = np.linspace(np.zeros(6), [0.3, -0.7, 0.5, 0.2, -0.4, 0.6], 17).astype(np.float32)
+    for eng in engines:
+        eng.load_state_from_numpy(baseplate_tf=base, current_angles=path[-1])
+        eng.trajectory_path = path
+    gpu, cpu = engines
+    np.testing.assert_allclose(gpu.link_world_transforms(), cpu.link_world_transforms(), atol=1e-4)
+    np.testing.assert_allclose(gpu.needle_tcp(path[3]), cpu.needle_tcp(path[3]), atol=1e-4)
+    for a, b in zip(gpu._path_fk(), cpu._path_fk()):
+        np.testing.assert_allclose(a, b, atol=1e-4)

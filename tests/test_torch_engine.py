@@ -277,6 +277,21 @@ def test_full_chain_ik_with_jax_restart_draws():
     assert torch.equal(a.angles, b.angles)
 
 
+def test_global_match_mode_end_to_end(scene):
+    """`match_mode="global"` solves the scene with all four triplets, and
+    its angles equal the default mode's: the assignment there is unique
+    (the reference's `test_global_match_mode_end_to_end`)."""
+    vol, _ = scene
+    volume = Volume(vol.data, vol.spacing, vol.origin)
+    glob = MamriEngine(match_mode="global", ik_restarts=0, device="cpu")
+    res = glob.estimate_pose(volume)
+    assert res.success and all(res.markers_found.values()) and res.baseplate_source == "detected"
+    default = MamriEngine(ik_restarts=0, device="cpu").estimate_pose(volume)
+    np.testing.assert_array_equal(res.angles_rad, default.angles_rad)
+    np.testing.assert_array_equal(res.steps, default.steps)
+    np.testing.assert_array_equal(res.baseplate_tf, default.baseplate_tf)
+
+
 def test_saved_baseplate_and_failures(jax_engine, scene):
     vol, base = scene
     teng = MamriEngine(ik_restarts=0, device="cpu")
@@ -296,10 +311,12 @@ def test_engine_options():
     eng = MamriEngine(jit_cache_size=3, device="cpu")
     assert eng._pipeline_cache.maxsize == 3 and len(eng._pipeline_cache) == 0
     assert MamriEngine(device="cpu")._pipeline_cache.maxsize == 32  # the reference's default
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MamriEngine(match_mode="global", device="cpu")
-    with pytest.raises(ValueError):
+    assert MamriEngine(match_mode="global", device="cpu").match_mode == "global"
+    with pytest.raises(ValueError) as port_err:
         MamriEngine(match_mode="first", device="cpu")
+    with pytest.raises(ValueError) as jax_err:
+        JaxEngine(match_mode="first")
+    assert str(port_err.value) == str(jax_err.value)  # the reference's text, letter for letter
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             MamriEngine(device="cuda")
@@ -376,11 +393,12 @@ def test_fetch_equals_per_key_copies(scene):
 
 def test_port_imports_without_jax():
     """With jax made unimportable, the port's package, engine, kernels'
-    module, parity harness, planning layer, tracker, tracer and readers
-    import, a CPU `estimate_pose` solves a scene, a CPU `plan_trajectory` a
-    needle goal, and a `PoseTracker.step` the scene read back by
-    `load_volume`, and no module of jax or of the JAX package `mamri_tpu` was
-    loaded."""
+    module, parity harness, planning layer, tracker, tracer, readers,
+    hardware loop, playback and scene writers import, a CPU `estimate_pose`
+    in the `global` mode solves a scene, the scene exports as glTF, a
+    simulated rig attaches, a CPU `plan_trajectory` finds a needle goal, and
+    a `PoseTracker.step` solves the scene read back by `load_volume`, and no
+    module of jax or of the JAX package `mamri_tpu` was loaded."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -393,7 +411,12 @@ def test_port_imports_without_jax():
         "from mamri_tpu_torch.api.streaming import PoseTracker\n"
         "from mamri_tpu_torch.perception import dicom, formats\n"
         "from mamri_tpu_torch.utils import trace\n"
-        "e = MamriEngine(device='cpu', ik_restarts=0)\n"
+        "from mamri_tpu_torch import hw\n"
+        "from mamri_tpu_torch.hw import devices, executor, sim, stream, sync, transport\n"
+        "from mamri_tpu_torch.api import playback\n"
+        "from mamri_tpu_torch.utils import glb, html_viewer, render, scene\n"
+        "from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets_global\n"
+        "e = MamriEngine(device='cpu', ik_restarts=0, match_mode='global')\n"
         "assert e.model.num_joints == 6\n"
         "truth = torch.tensor([0.3, -0.7, 0.5, 0.2, -0.4, 0.6])\n"
         "base = T.translate(torch.tensor([-60.0, -120.0, 0.0])) @ T.rot_x(-np.pi / 2) @ T.rot_z(0.15)\n"
@@ -408,10 +431,17 @@ def test_port_imports_without_jax():
         "assert res.success and all(res.markers_found.values()), res\n"
         "assert float(abs(res.angles_rad[0] - 0.3)) < 0.02, res.angles_rad\n"
         "assert type(res).__module__ == 'mamri_tpu_torch.api.types'\n"
+        "import os, tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    assert e.export_scene(os.path.join(d, 'scene.glb'))['Needle'] > 0\n"
+        "stack, robot, shutdown = sim.simulated_hardware(e)\n"
+        "try:\n"
+        "    assert e.available_actions()['return_to_zero'] and stack.status()['tcp_world'] is not None\n"
+        "finally:\n"
+        "    shutdown()\n"
         "import mamri_tpu_torch.planning, mamri_tpu_torch.planning.exact, mamri_tpu_torch.utils.stl\n"
         "goal = e.plan_trajectory(pts[-1] + np.float32(30.0), pts[-1])\n"
         "assert goal.angles.shape == (6,) and np.isfinite(goal.angles).all() and goal.position_error_mm < 1.0, goal\n"
-        "import os, tempfile\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    formats.save_volume(os.path.join(d, 'scan.nrrd'), vol)\n"
         "    back = formats.load_volume(os.path.join(d, 'scan.nrrd'))\n"

@@ -48,6 +48,9 @@ COPIED = [
     "perception/io.py", "perception/formats.py", "perception/dicom.py", "perception/jpegll.py",
     "perception/jpegls.py", "perception/jpegdct.py", "perception/jpeg2000.py", "perception/reference_cpu.py",
     "perception/__init__.py", "utils/stl.py",
+    "hw/__init__.py", "hw/transport.py", "hw/devices.py", "hw/executor.py", "hw/sim.py", "hw/sync.py",
+    "hw/stream.py", "api/playback.py",
+    "utils/scene.py", "utils/glb.py", "utils/html_viewer.py", "utils/render.py",
 ]
 
 # native/__init__.py: the copy builds into the port's git-ignored build

@@ -1,4 +1,9 @@
-"""The port's Kabsch fit, L-shape matcher and batched LM against mamri_tpu's."""
+"""The port's Kabsch fit, L-shape matchers (`best`, `strict`, `global`) and
+batched LM against mamri_tpu's.
+
+The global matcher is held to JAX's `match_l_shaped_triplets_global` (called
+alone, eagerly) on the reference's own cases (tests/test_lshape.py): equal
+`found` and `member_ids`, points within 1e-4 mm."""
 
 import numpy as np
 import pytest
@@ -10,10 +15,12 @@ import jax.numpy as jnp
 from mamri_tpu.ik.lm import least_squares_lm as j_lm
 from mamri_tpu.registration.kabsch import kabsch_rigid_transform as j_kabsch
 from mamri_tpu.registration.lshape import match_l_shaped_triplets as j_match
+from mamri_tpu.registration.lshape import match_l_shaped_triplets_global as j_global
 from mamri_tpu.registration.lshape import order_l_shape as j_order
 from mamri_tpu_torch.ik.lm import least_squares_lm as t_lm
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform as t_kabsch
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets as t_match
+from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets_global as t_global
 from mamri_tpu_torch.registration.lshape import order_l_shape as t_order
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
@@ -67,6 +74,109 @@ def test_matcher_matches_jax(strict, seed):
     np.testing.assert_allclose(got.points.numpy(), np.asarray(want.points), atol=1e-5)
     if not strict:  # first-match can hand a link another link's triplet
         assert bool(got.found.all())
+
+
+def _pad(points, k=32):
+    padded = np.zeros((k, 3), np.float32)
+    padded[: len(points)] = points
+    return padded, np.arange(k) < len(points)
+
+
+def _global_both(points, arms, k=32):
+    """(JAX's result, the port's) of the global matcher on the same padded
+    inputs, after checking that they agree."""
+    padded, valid = _pad(np.asarray(points, np.float32), k)
+    want = j_global(jnp.asarray(padded), jnp.asarray(valid), arms)
+    got = t_global(torch.as_tensor(padded), torch.as_tensor(valid), arms)
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(want.found))
+    np.testing.assert_array_equal(got.member_ids.numpy(), np.asarray(want.member_ids))
+    np.testing.assert_allclose(got.points.numpy(), np.asarray(want.points), atol=1e-4)
+    return want, got
+
+
+def _local_l(l1, l2, offset=(0.0, 0.0, 0.0)):
+    """tests/test_lshape.py's `_l_triplet`: corner, short arm +y (l2), long
+    arm +x (l1), translated by `offset`."""
+    return np.array([[0.0, 0.0, 0.0], [0.0, l2, 0.0], [l1, 0.0, 0.0]], np.float32) + np.float32(offset)
+
+
+def test_global_matches_jax_on_fk_markers():
+    """tests/test_lshape.py's FK-generated markers: all four links found."""
+    from mamri_tpu.core import transforms as jT
+    from mamri_tpu.core.robot import load_robot_model as j_load
+    from mamri_tpu.core.robot import marker_world_positions
+
+    model = j_load()
+    angles = jnp.array([0.4, -0.3, 0.6, 0.9, -0.5, 0.7])
+    base = jT.translate(jnp.array([30.0, -40.0, 10.0])) @ jT.rot_z(jnp.float32(0.3))
+    links = ["Baseplate", "Joint2", "Joint4", "Joint6"]
+    pts = np.concatenate([np.asarray(marker_world_positions(model, angles, ln, base)) for ln in links])
+    pts = pts[np.random.default_rng(11).permutation(len(pts))]
+    _, got = _global_both(pts, [model.spec(ln).arm_lengths for ln in links])
+    assert bool(got.found.all())
+
+
+def test_global_does_not_steal_matches_jax():
+    """Only the second link's triplet exists: the greedy hands it to the
+    first link, the global mode to its owner (tests/test_lshape.py)."""
+    arms = [(40.0, 20.0), (43.0, 20.0)]
+    pts = _local_l(43.0, 20.0)
+    greedy = t_match(*(torch.as_tensor(a) for a in _pad(pts)), arms)
+    assert bool(greedy.found[0]) and not bool(greedy.found[1])
+    _, got = _global_both(pts, arms)
+    assert not bool(got.found[0]) and bool(got.found[1])
+    assert sorted(got.member_ids[1].tolist()) == [0, 1, 2]
+
+
+def _dropout_trials():
+    """tests/test_lshape.py's 8 seeded dropout trials: links missing at
+    random, 3 stray blobs, the blobs shuffled."""
+    rng = np.random.default_rng(23)
+    trials = []
+    for _ in range(8):
+        present = rng.random(4) > 0.35
+        tris = [_local_l(a[0], a[1], rng.uniform(-150, 150, 3).astype(np.float32))
+                for a, keep in zip(ARMS, present) if keep]
+        noise = rng.uniform(-120, 120, size=(3, 3)).astype(np.float32)
+        pts = np.concatenate(tris + [noise]) if tris else noise
+        trials.append(pts[rng.permutation(len(pts))])
+    return trials
+
+
+@pytest.mark.parametrize("trial", range(8))
+def test_global_dropout_trials_match_jax(trial):
+    _global_both(_dropout_trials()[trial], ARMS)
+
+
+def test_global_two_mask_words_match_jax():
+    """K = 64 (two 32-bit mask words in the reference, one 64-bit word
+    here): the four triplets among 52 stray blobs, in slots 40-63; then the
+    same blobs in 128 slots (two 64-bit words) give the same assignment."""
+    rng = np.random.default_rng(7)
+    tris = [_l_triplet(rng, *a) for a in ARMS]
+    pts = rng.uniform(-400, 400, (64, 3)).astype(np.float32)
+    slots = rng.permutation(np.arange(40, 64))[:12]
+    pts[slots] = np.concatenate(tris).astype(np.float32)
+    _, got = _global_both(pts, ARMS, k=64)
+    assert bool(got.found.all()) and int(got.member_ids.max()) >= 40
+    got128 = t_global(torch.as_tensor(np.concatenate([pts, np.zeros((64, 3), np.float32)])),
+                      torch.as_tensor(np.arange(128) < 64), ARMS)
+    assert torch.equal(got128.member_ids, got.member_ids)  # 128 slots, two 64-bit words
+
+
+def test_global_tied_keys_match_jax():
+    """Exactly tied shortlist keys: each link's triplet twice, the copies
+    shifted by whole millimetres so every difference, hence every distance
+    and error, is bitwise equal between them. JAX's top_k puts the lower
+    combination index first; so must the port (and the assignment then
+    takes the first of the tied optima)."""
+    tris = [_local_l(a[0], a[1], (float(200 * i), 0.0, 0.0)) for i, a in enumerate(ARMS)]
+    twins = [t + np.float32([0.0, 500.0, 0.0]) for t in tris]
+    pts = np.concatenate(twins[::-1] + tris)  # the twins take the lower slots
+    want, got = _global_both(pts, ARMS)
+    assert bool(got.found.all())
+    # every link took a triplet with its lowest blob among the twins (slots 0-11)
+    assert sorted(got.member_ids.min(1).values.tolist()) == [0, 3, 6, 9]
 
 
 def test_order_l_shape_degenerate_matches_jax():
