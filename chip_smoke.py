@@ -42,8 +42,10 @@
    warm-up, then 5 timed calls. Checks the pose against the truth. Then one
    more call under `torch.cuda.set_sync_debug_mode("warn")`: a line gives
    how many synchronizing calls it reported and the file:line of each, and
-   none may come from `api/engine.py` (`_fetch`'s one wait per attempt is
-   a CUDA event's, which the mode does not report).
+   none may come from the engine or the pipeline's modules
+   (`PIPELINE_FILES`: `api/engine.py`, `lshape.py`, `kabsch.py`,
+   `residuals.py`, `lm.py`, `segmentation.py`; `_fetch`'s one wait per
+   attempt is a CUDA event's, which the mode does not report).
 4. Escalated paths: a speckle scene must escalate through the compact
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
@@ -60,8 +62,10 @@
    sequential `estimate_pose` calls; a batch with one noisy volume (only it
    escalates, every row equal to its single call); three frames through
    `estimate_pose_async` / `estimate_pose_collect`, each equal to the
-   synchronous path's, with dispatch and collect times and the host syncs
-   the sync debug mode reports under dispatch (printed, not failed on).
+   synchronous path's, with dispatch and collect times, whether the card
+   still had the frame's work when dispatch returned, and the host syncs
+   the sync debug mode reports under dispatch (none may come from
+   `PIPELINE_FILES`).
 9. Planning on the bench scene at 256^3 after `estimate_pose`: the
    collision world's build, `find_entry_point`, `plan_trajectory`,
    `plan_trajectory_sweep` over 3 distances, `plan_heuristic_path` (100
@@ -131,11 +135,29 @@
    direct call launches. After the path's counts are read, every kernel is
    held against its twin at the demo scan's shape (87x146x109: odd x and z,
    y not a multiple of 8), as phase 2 holds them.
+13. The sharded segmentation and the mesh (`mamri_tpu_torch/parallel/`)
+   on a virtual mesh of the card (one shard thread each on a
+   `ThreadAxis`): `segment_volume_sharded` on the bench scene at 256^3
+   with sp = 2 and 4 and sp = 1 with `force_general`, the clinical
+   512x512x192 frame with sp = 4 (the fast path: fused init on
+   halo-extended shards with the volume's `label_dims`, `z_runs` with the
+   shard's `x_off`), and the general path (`scan_lines` for y and z) at
+   256^3 with `closing_radius=1` and on a 260-wide scene (nxl = 65), each
+   bit-equal in every field to `segment_volume` on the card, each fast
+   case launching one fused init, z-run table and stats per shard; p50 of
+   5 beside the single card's (the counterpart of
+   `tools/profile_sharded.py`; no limit). A starved budget (`passes=1`)
+   through `run_sharded_batched` on a 2 x 2 mesh must escalate and
+   certify, equal to the single card at the final budget; then
+   `dryrun_multichip(4)` on the card. After the path's counts are read,
+   `close_init` with `label_dims` (72x256x256, 136x512x192), `z_runs` with
+   `x_off` and `scan_lines` at the general path's shard shapes are held
+   against their twins and timed (`shard_ms_by_variant` in the JSON).
 
 Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10, 11's global calls, 12's served
-requests and CLI calls) runs
+requests and CLI calls, 13's sharded cases, escalation and dry run) runs
 with the launch counts set to 0 just before it and read just after it (for
-phases 8 and 12, the launches of their own calls are tallied); every kernel of a path
+phases 8, 12 and 13, the launches of their own calls are tallied); every kernel of a path
 must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
 failure raises and exits non-zero. A kernel's JSON entry gives its slowest
 variant at 256^3 (`ms`, `plain_ms`, `bound_ms` of that variant) and every
@@ -674,19 +696,25 @@ def time_estimates(engine, vol, label, card):
     return p50
 
 
+PIPELINE_FILES = ("mamri_tpu_torch/api/engine.py", "mamri_tpu_torch/registration/lshape.py",
+                  "mamri_tpu_torch/registration/kabsch.py", "mamri_tpu_torch/ik/residuals.py",
+                  "mamri_tpu_torch/ik/lm.py", "mamri_tpu_torch/perception/segmentation.py")
+
+
 def report_host_syncs(engine, vol):
     """One more warm `estimate_pose` under torch's sync debug mode: prints
     how many synchronizing calls it reports and where (file:line, times),
-    and fails if one comes from `api/engine.py`. `_fetch`'s one wait per
-    attempt is a CUDA event's, which the mode does not report (it flags
+    and fails if one comes from the engine or the pipeline's modules
+    (`PIPELINE_FILES`): the pipeline queues its work and only `_fetch`
+    waits, with a CUDA event, which the mode does not report (it flags
     synchronizing copies and stream or device synchronizations)."""
     engine.current_angles = np.zeros(6, np.float32)
     res, where = syncs_in(lambda: engine.estimate_pose(vol))
     check_pose(engine, res, TRUE_ANGLES, "sync-debug 256^3")
     print(f"host syncs in one warm estimate_pose at 256^3: {sum(where.values())} {json.dumps(where)}")
-    engine_syncs = [at for at in where if at.startswith("mamri_tpu_torch/api/engine.py")]
-    if engine_syncs:
-        raise AssertionError(f"api/engine.py synchronizes outside _fetch's wait: {engine_syncs}")
+    pipeline_syncs = [at for at in where if at.startswith(PIPELINE_FILES)]
+    if pipeline_syncs:
+        raise AssertionError(f"the pipeline synchronizes outside _fetch's wait: {pipeline_syncs}")
 
 
 def cold_warm(engine, vol, label, card):
@@ -793,6 +821,7 @@ def syncs_in(fn):
 def phase_batch_async(model, card, paths):
     """bench.py's four 256^3 scenes as one batch, a batch with one noisy
     volume, and three frames through the async pair."""
+    import torch
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.volume import Volume
@@ -868,10 +897,17 @@ def phase_batch_async(model, card, paths):
         t0 = time.perf_counter()
         handle, where = syncs_in(lambda: with_counts(gpu_ops, tally, async_eng.estimate_pose_async, frame))
         t1 = time.perf_counter()
+        dispatched = torch.cuda.Event()
+        dispatched.record()
+        pending = not dispatched.query()  # the card still had the frame's work when dispatch returned
         got = with_counts(gpu_ops, tally, async_eng.estimate_pose_collect, handle)
         t2 = time.perf_counter()
         print(f"async frame {i}: dispatch_ms={(t1 - t0) * 1e3:.3f} collect_ms={(t2 - t1) * 1e3:.3f} "
+              f"work pending at return: {pending} "
               f"host syncs under dispatch: {sum(where.values())} {json.dumps(where)} ({card})")
+        dispatch_syncs = [at for at in where if at.startswith(PIPELINE_FILES)]
+        if dispatch_syncs:
+            raise AssertionError(f"async frame {i}: dispatch synchronizes: {dispatch_syncs}")
         check_estimate(got, truth, f"async frame {i}")
         for field in ("angles_rad", "steps", "baseplate_tf"):
             if not np.array_equal(getattr(got, field), getattr(want, field)):
@@ -1948,6 +1984,210 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
     return load_volume(os.path.join(demo_dir, "scan.nrrd"))
 
 
+# ------------------------------- phase 13: the sharded segmentation and the mesh
+SHARD_FAST_KERNELS = ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats")
+SHARD_GENERAL_KERNELS = ("scan_lines",)
+
+
+def shard_kernel_checks(vol256, vol512, card, failures, timings, errs, device="cuda"):
+    """The kernels at the shapes the sharded path gives them, each against
+    its twin on the same CUDA inputs (exact) and timed beside its bound:
+    `close_init` on a halo-extended interior shard with the whole volume's
+    (nx, ny) as `label_dims` (sp = 4 of 256^3: 72x256x256; of 512x512x192:
+    136x512x192), `z_runs` on that shard's swept labels with its `x_off`
+    and the global (nx, ny), and `scan_lines` on the general path's y and z
+    lines of a shard (64x256x256, and 65x256x256 of a 260-wide volume).
+    (`device="cpu"` only rehearses the flow.)"""
+    import torch
+    import torch.nn.functional as F
+    from mamri_tpu_torch.perception import gpu_ops as g
+    from mamri_tpu_torch.perception.segmentation import binary_close
+
+    dev = torch.device(device)
+    label = "shard"
+
+    def check(name, variant, fn, plain, args, nbytes, nops):
+        got, want = fn(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in zip(got, want))
+        if err != 0.0 or any(a.shape != b.shape for a, b in zip(got, want)):
+            failures.append(f"{label} {name}[{variant}]: max |kernel - twin| = {err}")
+        errs[name] = max(errs.get(name, 0.0), err)
+        kernel_ms, plain_ms = med_ms(fn, lambda: args), med_ms(plain, lambda: args)
+        bound_ms, bound_by = bound(nbytes, nops)
+        timings.setdefault(label, {}).setdefault(name, {})[variant] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(f"kernel {label} {name}[{variant}]: max_abs_err={err} ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}, {nbytes} B) ({card})")
+        return got
+
+    lo, hi = 65.0, 65535.0
+    for vol, sp in ((vol256, 4), (vol512, 4)):
+        data = torch.as_tensor(np.asarray(vol.data)).to(dev)
+        nx, ny, nz = data.shape
+        nxl, h, me = nx // sp, 4, 1
+        x_off = me * nxl
+        ext = data[x_off - h:x_off + nxl + h].contiguous()  # an interior shard and its neighbours' halo planes
+        n = ext.numel()
+        tag = "x".join(map(str, ext.shape))
+        mask_ext, lab_ext = check("close_init", f"{tag} label_dims", g.close_init, g.close_init_plain,
+                                  (ext, lo, hi, (nx, ny)), 9 * n, 34 * n)
+        mask = mask_ext[h:h + nxl]
+        lab0 = torch.where(mask == 1, lab_ext[h:h + nxl] + (x_off - h), g.BIG)
+        pad = (0, (-nz) % 128, 0, (-ny) % 8)
+        lab = F.pad(lab0, pad, value=g.BIG)
+        reset = F.pad((mask == 0).to(torch.int8), pad, value=1).contiguous()
+        dists = g.compute_reset_distances(reset)
+        g.ccl_half_sweep_yz(lab, dists)
+        g.ccl_half_sweep_x(lab, dists)
+        g.ccl_half_sweep_yz(lab, dists)
+        npad = lab.numel()
+        k, cand_k = 8, 8
+        nyq = -(-lab.shape[1] // 128) * 128
+        m = lab.shape[0] * k * nyq
+        nblocks = (lab.shape[0] // 8) * (nyq // 128)
+        z_args = (lab, dists[4], dists[5], nx, ny, k, cand_k, x_off)
+        runs = int((g.z_runs_plain(*z_args)[2] > 0).sum())
+        out = check("z_runs", f"{'x'.join(map(str, lab.shape))} x_off={x_off}", g.z_runs, g.z_runs_plain, z_args,
+                    2 * npad + 12 * m + 4 * nblocks * (cand_k + 1) + 6 * runs, 2 * npad)
+        if int(out[5]) == 0:
+            failures.append(f"{label} z_runs x_off={x_off}: no root found on the shard")
+    # the general path's lines: a shard of the radius-1 closing, y lines and z lines
+    nx256 = vol256.data.shape[0]
+    for width, sp in ((nx256, 4), (nx256 + 4, 4)):
+        data = torch.as_tensor(np.asarray(vol256.data)).to(dev)
+        if width > nx256:
+            data = F.pad(data, (0, 0, 0, 0, 0, width - nx256), value=10.0)
+        nxl = width // sp
+        closed = binary_close((data[nxl:2 * nxl] >= lo) & (data[nxl:2 * nxl] <= hi), 1)
+        _, ny, nz = closed.shape
+        i = torch.arange(nxl, dtype=torch.int32, device=dev)[:, None, None] + nxl
+        j = torch.arange(ny, dtype=torch.int32, device=dev)[None, :, None]
+        kk = torch.arange(nz, dtype=torch.int32, device=dev)[None, None, :]
+        lab = torch.where(closed, kk * (width * ny) + j * width + i, g.BIG)
+        reset = (~closed).to(torch.int32)
+        n = lab.numel()
+        for axis_name, lines, r_lines in (
+            ("z", lab.reshape(-1, nz), reset.reshape(-1, nz)),
+            ("y", lab.transpose(1, 2).contiguous().reshape(-1, ny), reset.transpose(1, 2).contiguous().reshape(-1, ny)),
+        ):
+            check("scan_lines", f"{nxl}x{ny}x{nz} {axis_name}", g.scan_lines, g.scan_lines_plain, (lines, r_lines),
+                  12 * n, 4 * n)
+
+
+def one_per_shard(tally, sp, label):
+    """Each of the `sp` shards launched its own fused init, z-run tables and stats."""
+    for name in ("close_init", "z_runs", "run_stats"):
+        if tally[name] != sp:
+            raise AssertionError(f"{label}: {tally[name]} {name} launches, one per shard is {sp}")
+
+
+def _seg_equal(got, want, what):
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.shape != b.shape or not bool((a == b).all()):
+            raise AssertionError(f"{what}: {f} differs from segment_volume on the card")
+
+
+def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
+    """`segment_volume_sharded` on a ThreadAxis virtual mesh of the card
+    against `segment_volume` on the card (every field bit-equal), the
+    launches of each case, the p50 of each beside the single card's; a
+    starved budget escalated through `run_sharded_batched`; and
+    `dryrun_multichip(4)` on the card. (`device="cpu"` only rehearses the
+    flow.)"""
+    import torch
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.parallel import make_mesh, run_sharded_batched
+    from mamri_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mamri_tpu_torch.parallel.shard_seg import segment_volume_threads
+    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch.perception.segmentation import SegmentationParams, segment_volume
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    fused = SegmentationParams(max_sweeps=2, passes=3, max_roots=128)  # the engine's defaults
+    radius1 = fused._replace(closing_radius=1)
+    nx, ny, nz = vol256.data.shape
+    vol_wide, _ = bench_scene(model, (nx + 4, ny, nz))
+    bench, clinical, wide = ("x".join(map(str, v.data.shape)) for v in (vol256, vol512, vol_wide))
+    cases = (  # label, volume, params, sp, force_general, the path it takes
+        (f"bench {bench} sp=2", vol256, fused, 2, False, "fast"),
+        (f"bench {bench} sp=4", vol256, fused, 4, False, "fast"),
+        (f"bench {bench} sp=1 force_general", vol256, fused, 1, True, "fast"),
+        (f"clinical {clinical} sp=4", vol512, fused, 4, False, "fast"),
+        (f"bench {bench} closing_radius=1 sp=4", vol256, radius1, 4, False, "general"),
+        (f"bench {wide} sp=4 (nxl={(nx + 4) // 4})", vol_wide, fused, 4, False, "general"),
+    )
+    tallies = {"fast": {}, "general": {}}
+    for label, vol, params, sp, force_general, path in cases:
+        data = torch.as_tensor(np.asarray(vol.data)).to(dev)
+        spacing = torch.as_tensor(vol.spacing, dtype=torch.float32).to(dev)
+        origin = torch.as_tensor(vol.origin, dtype=torch.float32).to(dev)
+        want = segment_volume(data, spacing, origin, params)
+
+        def sharded():
+            return segment_volume_threads(data, spacing, origin, params, devices=[dev] * sp,
+                                          force_general=force_general, timeout=300)
+
+        once = {}
+        got = with_counts(gpu_ops, once, sharded)
+        _seg_equal(got, want, label)
+        for k, v in once.items():
+            tallies[path][k] = tallies[path].get(k, 0) + v
+        read_tally(once, SHARD_FAST_KERNELS if path == "fast" else SHARD_GENERAL_KERNELS, label)
+        if path == "fast":
+            one_per_shard(once, sp, label)
+        s_p50, s_all = p50_ms(sharded)
+        one_p50, one_all = p50_ms(lambda: segment_volume(data, spacing, origin, params))
+        print(f"sharded {label}: bit-equal to segment_volume (labels, body mask, roots, counts, sums, centroids, "
+              f"num_components={int(got.num_components)}, certificates {bool(got.ccl_converged)}/"
+              f"{bool(got.roots_complete)}/{bool(got.blobs_complete)}); launches {once}; p50_ms={s_p50:.3f} "
+              f"all_ms={s_all} single-card p50_ms={one_p50:.3f} all_ms={one_all} ({card})")
+        if not (bool(got.ccl_converged) and bool(got.roots_complete) and int(got.num_blobs) >= 12):
+            raise AssertionError(f"{label}: not certified or blobs missing ({int(got.num_blobs)} blobs)")
+        del data, want, got
+        torch.cuda.empty_cache()
+    paths["sharded"] = read_tally(tallies["fast"], SHARD_FAST_KERNELS, "sharded fast path")
+    paths["sharded_general"] = read_tally(tallies["general"], SHARD_GENERAL_KERNELS, "sharded general path")
+
+    # a starved budget (passes=1: x never swept) on a 2 x 2 mesh: it fails the psum'd
+    # certificate, escalates, and certifies with the single card's answer at the final budget
+    starved = SegmentationParams(passes=1, max_sweeps=1, max_roots=128)
+    engine = MamriEngine(device=device, seg_params=starved)
+    mesh = make_mesh(4, axes=("dp", "sp"), shape=(2, 2), devices=[dev] * 4)
+    batch = np.stack([np.asarray(vol256.data)] * 2)
+    log = logging.getLogger("mamri_tpu_torch.parallel.mesh")
+    esc = _Escalations()
+    log.addHandler(esc)
+    tally = {}
+    try:
+        t0 = time.perf_counter()
+        out, final, certified = with_counts(gpu_ops, tally, run_sharded_batched, engine, mesh, batch,
+                                            vol256.spacing, vol256.origin, sp_axis="sp")
+        esc_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        log.removeHandler(esc)
+    print(f"sharded escalation: {esc.messages}; certified={certified} final passes={final.passes} in "
+          f"{esc_ms:.3f} ms ({card})")
+    if not (certified and final.passes > 1 and any("escalation for 2/2 volumes" in m for m in esc.messages)):
+        raise AssertionError("sharded escalation: the starved budget did not fail and then certify")
+    for row in range(2):
+        check_row(out, row, TRUE_ANGLES, f"sharded escalation row {row}")
+    single = MamriEngine(device=device, seg_params=final).estimate_pose_batch(batch[:1], vol256.spacing, vol256.origin)
+    for k, v in out.items():
+        if not np.array_equal(v[0], single[k][0]):
+            raise AssertionError(f"sharded escalation: {k} {v[0]} != single card {single[k][0]}")
+    paths["sharded_escalation"] = read_tally(tally, SHARD_FAST_KERNELS, "sharded escalation path")
+
+    tally = {}
+    t0 = time.perf_counter()
+    shapes = with_counts(gpu_ops, tally, dryrun_multichip, 4, device=device)
+    print(f"dryrun_multichip(4) on the card: {shapes} in {time.perf_counter() - t0:.1f} s ({card})")
+    paths["dryrun"] = read_tally(tally, SHARD_FAST_KERNELS, "dry-run path")
+    print(f"phase 13 (sharded segmentation and the mesh) took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2093,6 +2333,13 @@ def main() -> int:
     if failures:
         raise AssertionError("kernels disagree with their twins at the demo scan:\n" + "\n".join(failures))
 
+    # ---- phase 13: the sharded segmentation on a virtual mesh of the card, an escalation, the dry run;
+    # then the kernels at the shard shapes that path gives them
+    phase_sharded(model, vol256, vol512, card, paths)
+    shard_kernel_checks(vol256, vol512, card, failures, timings, errs)
+    if failures:
+        raise AssertionError("kernels disagree with their twins at the shard shapes:\n" + "\n".join(failures))
+
     main_t = timings["256^3"]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2114,6 +2361,8 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "ms_by_variant": {v: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]} for v, t in variants.items()},
+            "shard_ms_by_variant": {v: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2]}
+                                    for v, t in timings["shard"].get(name, {}).items()},
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(card)

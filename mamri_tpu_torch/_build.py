@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: argument types (every entry takes the stream last, returns cudaError_t)
-    "mamri_close_init": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float],
+    "mamri_close_init": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _I],
     "mamri_reset_distances": [_P, _P, _P, _I, _I, _I, _I],
     "mamri_run_min": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mamri_check": [_P, _P, _I, _I, _I, _I, _P],

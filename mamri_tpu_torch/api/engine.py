@@ -455,19 +455,26 @@ class MamriEngine:
                 self.saved_baseplate = np.asarray(f["saved_baseplate"], dtype=np.float32)
 
     # ---------------------------------------------------------------- compute core
-    def pipeline_fn(self, seg_params: Optional[SegmentationParams] = None):
+    def pipeline_fn(self, seg_params: Optional[SegmentationParams] = None, seg_fn=None):
         """The per-volume program: segmentation -> matching -> baseplate ->
         full-chain IK -> steps. Takes and returns tensors on the engine's
-        device (a dict with the reference's keys)."""
+        device (a dict with the reference's keys). It queues its work and
+        reads nothing back, so a caller waits only where it fetches.
+
+        `seg_fn` replaces the segmentation stage (the signature of
+        `segment_volume`): the mesh's sharded path puts
+        `segment_volume_sharded` here, and everything downstream works on
+        the whole-volume blob stats unchanged."""
         model = self.model
         seg_params = seg_params if seg_params is not None else self.seg_params
+        seg_fn = seg_fn if seg_fn is not None else segment_volume
         arm_lengths = self._arm_lengths
         bp_local = model.marker_local[model.link_index("Baseplate")]
         ik_iters, ik_restarts = self.ik_iters, self.ik_restarts
         match_mode = self.match_mode
 
         def pipeline(data, spacing, origin, saved_tf, use_saved, have_saved, apply_correction, current_angles):
-            seg = segment_volume(data, spacing, origin, seg_params)
+            seg = seg_fn(data, spacing, origin, seg_params)
             if match_mode == "global":
                 matches = match_l_shaped_triplets_global(seg.centroids_ras, seg.blob_valid, arm_lengths)
             else:

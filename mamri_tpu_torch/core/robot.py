@@ -72,6 +72,10 @@ class RobotModel:
         return self.fixed_offsets.cpu().numpy().astype(np.float64)
 
     @property
+    def num_links(self) -> int:
+        return len(self.specs)
+
+    @property
     def num_joints(self) -> int:
         return sum(1 for s in self.specs if s.joint_index >= 0)
 
@@ -94,6 +98,10 @@ class RobotModel:
     @property
     def articulated_names(self) -> Tuple[str, ...]:
         return tuple(self.specs[i].name for i in self.articulated_links)
+
+    @property
+    def marker_links(self) -> Tuple[int, ...]:
+        return tuple(i for i, s in enumerate(self.specs) if s.has_markers)
 
     @property
     def motor_letters(self) -> Tuple[str, ...]:

@@ -44,6 +44,24 @@ def flip_xy(points):
     return torch.cat([-points[..., :2], points[..., 2:]], dim=-1)
 
 
+def matmul(a, b):
+    """Matrix product of (..., 4, 4) homogeneous transforms in full float32
+    (the reference pins Precision.HIGHEST; TF32 is off in this package)."""
+    return torch.matmul(a, b)
+
+
+def chain(*ms):
+    """Left-to-right product of homogeneous transforms."""
+    out = ms[0]
+    for m in ms[1:]:
+        out = matmul(out, m)
+    return out
+
+
+def identity(dtype=torch.float32, device=None):
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def _embed_rot(r):
     """(..., 3, 3) rotation -> (..., 4, 4) homogeneous matrix."""
     return homogeneous(torch.cat([r, r.new_zeros(r.shape[:-2] + (3, 1))], dim=-1))
@@ -103,3 +121,16 @@ def apply(matrix, points):
     """Apply a (..., 4, 4) transform to (..., N, 3) points."""
     rotated = torch.einsum("...ij,...nj->...ni", matrix[..., :3, :3], points)
     return rotated + matrix[..., None, :3, 3]
+
+
+def angle_about_axis(matrix, axis_code: int):
+    """The joint angle of an articulation matrix (the inverse of
+    `articulation_matrix`); 0 for a fixed link."""
+    if axis_code == AXIS_IS:
+        return torch.atan2(matrix[..., 1, 0], matrix[..., 0, 0])
+    if axis_code == AXIS_PA:
+        # rot_y(phi)[0, 2] = sin(phi), [2, 2] = cos(phi), with phi = -theta
+        return -torch.atan2(matrix[..., 0, 2], matrix[..., 2, 2])
+    if axis_code == AXIS_LR:
+        return torch.atan2(matrix[..., 2, 1], matrix[..., 1, 1])
+    return torch.zeros(matrix.shape[:-2], dtype=matrix.dtype, device=matrix.device)

@@ -9,7 +9,12 @@
 // on every side (so it never clips at the border), the erosion at each
 // in-volume voxel. ball(2) is the 3x3x3 box plus the six axis points at
 // distance 2 (33 offsets). The label of a closed voxel is its (z, y, x)
-// raster index k*nx*ny + j*nx + i; background gets INT32_MAX.
+// raster index k*lnx*lny + j*lnx + i; background gets INT32_MAX. (lnx, lny)
+// are the block's own (nx, ny) unless the caller gives other multipliers
+// (`label_dims`, pallas_ops.py:224-227): a halo-extended shard of a volume
+// sharded along x labels with the whole volume's (nx, ny) and shifts the
+// labels by its x offset. The arithmetic is uint32; the halo's extra x
+// planes alias into the next row, and the caller keeps only the interior.
 //
 // What bounds it on the card: bytes. One f32 read and one int8 + one int32
 // write a voxel (9 B); a per-voxel stencil of 2 x 33 loads makes it
@@ -80,7 +85,8 @@ __global__ void __launch_bounds__(CI_THREADS)
 
 __global__ void __launch_bounds__(CI_THREADS)
     close_init_kernel(const uint32_t* __restrict__ band, int8_t* __restrict__ mask,
-                      int32_t* __restrict__ lab, int nx, int ny, int nz, int words) {
+                      int32_t* __restrict__ lab, int nx, int ny, int nz, int words, int lnx,
+                      int lny) {
   __shared__ uint32_t s_band[CI_BX * CI_BY * CI_BW];  // later the erosion words
   __shared__ uint32_t s_zbox[CI_ZX * CI_ZY * CI_ZW];  // later the dilation's z-box
   __shared__ uint32_t s_dil[CI_DX * CI_DY * CI_DW];
@@ -151,7 +157,7 @@ __global__ void __launch_bounds__(CI_THREADS)
   __syncthreads();
 
   // bits -> int8 mask + int32 label; row (x, y) of the patch is r = xl * TY + yl
-  const uint32_t nxy = (uint32_t)nx * (uint32_t)ny;
+  const uint32_t nxy = (uint32_t)lnx * (uint32_t)lny;
   if (nz % 4 == 0) {
     for (int t = threadIdx.x; t < CI_TX * CI_TY * CI_TW * 8; t += CI_THREADS) {
       const int qq = t % (CI_TW * 8), r = t / (CI_TW * 8);
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(CI_THREADS)
       if (x >= nx || y >= ny || z >= nz) continue;
       const uint32_t bits = (s_ero[r * CI_TW + qq / 8] >> (4 * (qq % 8))) & 0xfu;
       const long long off = ((long long)x * ny + y) * nz + z;
-      const uint32_t lin = (uint32_t)z * nxy + (uint32_t)y * (uint32_t)nx + (uint32_t)x;
+      const uint32_t lin = (uint32_t)z * nxy + (uint32_t)y * (uint32_t)lnx + (uint32_t)x;
       *reinterpret_cast<uint32_t*>(mask + off) =
           (bits & 1u) | ((bits >> 1) & 1u) << 8 | ((bits >> 2) & 1u) << 16 | (bits >> 3) << 24;
       *reinterpret_cast<int4*>(lab + off) = make_int4(
@@ -174,13 +180,14 @@ __global__ void __launch_bounds__(CI_THREADS)
       const bool on = (s_ero[r * CI_TW + zl / 32] >> (zl % 32)) & 1u;
       const long long off = ((long long)x * ny + y) * nz + z;
       mask[off] = on ? 1 : 0;
-      lab[off] = on ? (int)((uint32_t)z * nxy + (uint32_t)y * (uint32_t)nx + (uint32_t)x) : MAMRI_BIG;
+      lab[off] = on ? (int)((uint32_t)z * nxy + (uint32_t)y * (uint32_t)lnx + (uint32_t)x) : MAMRI_BIG;
     }
   }
 }
 
 extern "C" int mamri_close_init(const float* data, uint32_t* band, int8_t* mask, int32_t* lab,
-                                int nx, int ny, int nz, float lo, float hi, cudaStream_t stream) {
+                                int nx, int ny, int nz, float lo, float hi, int lnx, int lny,
+                                cudaStream_t stream) {
   const int words = (nz + 31) / 32;
   const long long rows = (long long)nx * ny;
   const unsigned band_blocks = (unsigned)((rows * 32 + CI_THREADS - 1) / CI_THREADS);
@@ -188,7 +195,7 @@ extern "C" int mamri_close_init(const float* data, uint32_t* band, int8_t* mask,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((nx + CI_TX - 1) / CI_TX, (ny + CI_TY - 1) / CI_TY, (words + CI_TW - 1) / CI_TW);
-  close_init_kernel<<<grid, CI_THREADS, 0, stream>>>(band, mask, lab, nx, ny, nz, words);
+  close_init_kernel<<<grid, CI_THREADS, 0, stream>>>(band, mask, lab, nx, ny, nz, words, lnx, lny);
   return (int)cudaGetLastError();
 }
 

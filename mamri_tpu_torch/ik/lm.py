@@ -81,10 +81,10 @@ def multistart_lm(residual_fn, guesses, lower, upper, **kw):
     `guesses`, the lowest final cost kept (`torch.argmin` takes the first of
     equal costs, as `jnp.argmin` does)."""
     results = least_squares_lm(residual_fn, guesses, lower, upper, **kw)
-    best = torch.argmin(results.cost)
+    best = torch.argmin(results.cost).reshape(1)  # index_select: no host read of the index
     return LMResult(
-        x=results.x[best],
-        cost=results.cost[best],
-        grad_norm=results.grad_norm[best],
-        iterations=results.iterations[best],
-    ), best
+        x=results.x.index_select(0, best)[0],
+        cost=results.cost.index_select(0, best)[0],
+        grad_norm=results.grad_norm.index_select(0, best)[0],
+        iterations=results.iterations.index_select(0, best)[0],
+    ), best[0]

@@ -78,7 +78,7 @@ def random_restart_guesses(model: RobotModel, count: int, seed: int):
     `torch.Generator` seeded with `seed`: the same guesses on every device."""
     lower, upper = model.limits_rad[:, 0], model.limits_rad[:, 1]
     gen = torch.Generator().manual_seed(seed)
-    u = torch.rand((count, model.num_joints), generator=gen).to(model.device)
+    u = torch.rand((count, model.num_joints), generator=gen).to(model.device, non_blocking=True)  # queued: no wait
     return lower * 0.8 + u * (upper * 0.8 - lower * 0.8)
 
 
@@ -140,8 +140,9 @@ def solve_full_chain_ik(
 
         found2 = false if joint2_found is None else joint2_found
         score = score + torch.where(found2, 1e-2 * vmap(j2_err)(results.x), 0.0)
-    sel = torch.argmin(score)
-    angles = results.x[sel]
+    # a 0-d index read on the host would wait on the card: index_select queues
+    sel = torch.argmin(score).reshape(1)
+    angles = results.x.index_select(0, sel)[0]
 
     # Joint6 winding: a6 and a6 +- 360 deg are one pose; take the in-limits
     # winding nearest the current pose (exactly equal cost)
@@ -150,13 +151,13 @@ def solve_full_chain_ik(
     winds = torch.stack([a6 - two_pi, a6, a6 + two_pi])
     ok = (winds >= lower[5]) & (winds <= upper[5])
     wdist = torch.where(ok, torch.abs(winds - current_angles[5]), torch.inf)
-    angles = torch.cat([angles[:5], winds[torch.argmin(wdist)][None], angles[6:]])
+    angles = torch.cat([angles[:5], winds.index_select(0, torch.argmin(wdist).reshape(1)), angles[6:]])
 
     e6 = full_chain_residual(model, angles, base_tf, joint6_targets, apply_correction)[:9]
     return FullChainIKResult(
         angles=angles,
         rmse=torch.sqrt((e6 * e6).mean()),
-        cost=results.cost[sel],
-        best_guess=sel,
-        grad_norm=results.grad_norm[sel],
+        cost=results.cost.index_select(0, sel)[0],
+        best_guess=sel[0],
+        grad_norm=results.grad_norm.index_select(0, sel)[0],
     )

@@ -21,13 +21,17 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, and then either launches its kernel on the current CUDA stream
 (CUDA tensors) or runs its plain twin (CPU tensors). There is no fallback:
 a CUDA tensor reaches the kernel or an error. `LAUNCHES` counts kernel
-launches per wrapper, so a run can show which kernels it went through.
+launches per wrapper, so a run can show which kernels it went through; the
+counts are taken under a lock, since the shards of `parallel.shard_seg`
+launch from threads of their own.
 
 The Pallas-named helpers below the wrappers (`ccl_half_sweep_yz`, ...)
 compose the wrappers the way segmentation calls the TPU kernels.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -49,11 +53,13 @@ LAUNCHES = {
 ROOTS_MAX_K = 64  # csrc/roots.cu: the picks of a chunk of rows, and of a slab, are rows of k + 1 words
 ROOTS_LIST_CAP = 8192  # csrc/roots.cu: the roots a block lists in shared memory; a chunk holds at most this many cells
 STATS_MAX_ROOTS = 7168  # csrc/stats.cu: the roots a block ranks and keeps (20 B each) in shared memory
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _on_cuda(*tensors) -> bool:
@@ -96,7 +102,8 @@ def _launch(name: str, entry: str, *args) -> None:
     err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def new_flag(device):
@@ -105,23 +112,29 @@ def new_flag(device):
 
 
 # ----------------------------------------------------------------- close_init
-def close_init(data, lo: float, hi: float):
+def close_init(data, lo: float, hi: float, label_dims=None):
     """f32 (nx, ny, nz) -> (closed mask int8, initial labels int32).
 
     Threshold [lo, hi] (NaN out of band), exact ball(2) closing with safe
     borders (every voxel outside the volume is out of band), label =
-    (z, y, x) raster index k*nx*ny + j*nx + i, INT32_MAX for background."""
+    (z, y, x) raster index k*lnx*lny + j*lnx + i, INT32_MAX for background.
+    `label_dims=(lnx, lny)` sets the multipliers (default the block's own
+    (nx, ny)); the mask does not depend on them. The arithmetic wraps as
+    uint32 does."""
     _check_volume(data, "close_init data", torch.float32)
     nx, ny, nz = data.shape
+    lnx, lny = (nx, ny) if label_dims is None else (int(label_dims[0]), int(label_dims[1]))
+    if not (0 < lnx < 2**31 and 0 < lny < 2**31):
+        raise ValueError(f"close_init: label_dims must be positive int32, got {label_dims}")
     lo, hi = float(torch.tensor(lo, dtype=torch.float32)), float(torch.tensor(hi, dtype=torch.float32))
     if not _on_cuda(data):
-        return close_init_plain(data, lo, hi)
+        return close_init_plain(data, lo, hi, label_dims)
     band = torch.empty((nx, ny, -(-nz // 32)), dtype=torch.int32, device=data.device)  # z packed 32 a word
     mask = torch.empty(data.shape, dtype=torch.int8, device=data.device)
     lab = torch.empty(data.shape, dtype=torch.int32, device=data.device)
     _launch(
         "close_init", "mamri_close_init",
-        data.data_ptr(), band.data_ptr(), mask.data_ptr(), lab.data_ptr(), nx, ny, nz, lo, hi,
+        data.data_ptr(), band.data_ptr(), mask.data_ptr(), lab.data_ptr(), nx, ny, nz, lo, hi, lnx, lny,
     )
     return mask, lab
 
@@ -149,18 +162,21 @@ def _ball2(p, combine):
     return out
 
 
-def close_init_plain(data, lo: float, hi: float):
-    """Plain twin of `close_init`: OR/AND of zero-filled shifts."""
+def close_init_plain(data, lo: float, hi: float, label_dims=None):
+    """Plain twin of `close_init`: OR/AND of zero-filled shifts; the labels
+    in int64, wrapped to 32 bits."""
     nx, ny, nz = data.shape
+    lnx, lny = (nx, ny) if label_dims is None else (int(label_dims[0]), int(label_dims[1]))
     dev = data.device
     m = torch.nn.functional.pad(((data >= lo) & (data <= hi)).to(torch.uint8), (4,) * 6).bool()
     dil = _ball2(m, torch.logical_or)
     # zero fill reaches only the outer 2 shells, which the crop drops
     ero = _ball2(dil, torch.logical_and)[4:-4, 4:-4, 4:-4]
-    i = torch.arange(nx, dtype=torch.int32, device=dev)[:, None, None]
-    j = torch.arange(ny, dtype=torch.int32, device=dev)[None, :, None]
-    k = torch.arange(nz, dtype=torch.int32, device=dev)[None, None, :]
-    lin = k * (nx * ny) + j * nx + i
+    i = torch.arange(nx, dtype=torch.int64, device=dev)[:, None, None]
+    j = torch.arange(ny, dtype=torch.int64, device=dev)[None, :, None]
+    k = torch.arange(nz, dtype=torch.int64, device=dev)[None, None, :]
+    lin = (k * (lnx * lny) + j * lnx + i) & 0xFFFFFFFF
+    lin = torch.where(lin >= 2**31, lin - 2**32, lin).to(torch.int32)
     return ero.to(torch.int8), torch.where(ero, lin, BIG)
 
 
@@ -316,10 +332,13 @@ def z_runs_plain(labels, dfz, dbz, nx: int, ny: int, k: int = 16, cand_k: int = 
 
 
 # ------------------------------------------------------------------ run_stats
-def run_stats(run_lab, run_len, run_z0, roots):
+def run_stats(run_lab, run_len, run_z0, roots, exact: bool = False):
     """(R, 4) f32 [count, sum_i, sum_j, sum_k] per root over the dense
     (nxp, k, nyq) run tables of `z_runs`. `roots` (R,) int32 must be
-    ascending (BIG padding last); sums are exact int64, rounded to f32."""
+    ascending (BIG padding last); sums are exact int64, rounded to f32.
+    `exact=True` returns the int64 sums themselves (the sharded path adds
+    shards' sums before it rounds); a repeated root reads the row of its
+    first occurrence either way."""
     _check(run_lab, "run_stats run_lab", torch.int32)
     if run_lab.dim() != 3:
         raise ValueError(f"run_stats: expected (nxp, k, nyq) tables, got {tuple(run_lab.shape)}")
@@ -328,8 +347,8 @@ def run_stats(run_lab, run_len, run_z0, roots):
     _check(roots, "run_stats roots", torch.int32)
     _, k, nyq = run_lab.shape
     if not _on_cuda(run_lab, run_len, run_z0, roots):
-        return run_stats_plain(run_lab, run_len, run_z0, roots)
-    return _run_stats_launch("run_stats", run_lab, run_len, run_z0, None, None, k * nyq, nyq, roots)
+        return run_stats_plain(run_lab, run_len, run_z0, roots, exact)
+    return _run_stats_launch("run_stats", run_lab, run_len, run_z0, None, None, k * nyq, nyq, roots, exact)
 
 
 def run_stats_compact(lab_c, len_c, z0_c, gi_c, gj_c, roots):
@@ -344,7 +363,7 @@ def run_stats_compact(lab_c, len_c, z0_c, gi_c, gj_c, roots):
     return _run_stats_launch("run_stats_compact", lab_c, len_c, z0_c, gi_c, gj_c, 1, 1, roots)
 
 
-def _run_stats_launch(name, lab, ln, z0, gi, gj, kny, nyq, roots):
+def _run_stats_launch(name, lab, ln, z0, gi, gj, kny, nyq, roots, exact=False):
     r = roots.numel()
     if r < 1 or lab.numel() < 1:
         raise ValueError(f"{name}: needs at least one root and one run slot")
@@ -356,19 +375,22 @@ def _run_stats_launch(name, lab, ln, z0, gi, gj, kny, nyq, roots):
         None if gi is None else gi.data_ptr(), None if gj is None else gj.data_ptr(),
         lab.numel(), kny, nyq, roots.data_ptr(), r, acc.data_ptr(), out.data_ptr(),
     )
+    if exact:  # the accumulator holds the sums at each root's first row
+        return acc[:4 * r].view(r, 4)[torch.searchsorted(roots, roots)]
     return out
 
 
-def run_stats_plain(run_lab, run_len, run_z0, roots):
+def run_stats_plain(run_lab, run_len, run_z0, roots, exact: bool = False):
     """Plain twin of `run_stats`: searchsorted + index_add_ in int64."""
     _, k, nyq = run_lab.shape
     p = torch.arange(run_lab.numel(), dtype=torch.int64, device=run_lab.device)
-    return _run_stats_sums(run_lab, run_len, run_z0, p // (k * nyq), p % nyq, roots)
+    sums = _run_stats_sums(run_lab, run_len, run_z0, p // (k * nyq), p % nyq, roots)
+    return sums if exact else sums.to(torch.float32)
 
 
 def run_stats_compact_plain(lab_c, len_c, z0_c, gi_c, gj_c, roots):
     """Plain twin of `run_stats_compact`."""
-    return _run_stats_sums(lab_c, len_c, z0_c, gi_c.long(), gj_c.long(), roots)
+    return _run_stats_sums(lab_c, len_c, z0_c, gi_c.long(), gj_c.long(), roots).to(torch.float32)
 
 
 def _run_stats_sums(lab, ln, z0, gi, gj, roots):
@@ -380,7 +402,7 @@ def _run_stats_sums(lab, ln, z0, gi, gj, roots):
     hit = (idx < r) & (roots[idx.clamp(max=r - 1)] == lab) & (ln > 0)
     feats = torch.stack([ln, gi * ln, gj * ln, z0 * ln + ln * (ln - 1) // 2], dim=1)
     acc = torch.zeros((r, 4), dtype=torch.int64, device=lab.device).index_add_(0, idx[hit], feats[hit])
-    return acc[torch.searchsorted(roots, roots)].to(torch.float32)
+    return acc[torch.searchsorted(roots, roots)]
 
 
 # ----------------------------------------------------------------- scan_lines

@@ -110,6 +110,43 @@ def binary_close(mask, radius: int = 2):
     return ero[pad:-pad, pad:-pad, pad:-pad]
 
 
+def _segmented_min_scan(lab, reset, axis: int, reverse: bool):
+    """Running minimum along `axis` that restarts at reset voxels (a reset
+    keeps its own value). The scan of the semiring element (reset, value)
+    under combine((fa, va), (fb, vb)) = (fa | fb, vb if fb else min(va, vb)),
+    which is associative, as a log-step doubling ladder (Hillis-Steele): the
+    reference's `lax.associative_scan` (segmentation.py:190-204)."""
+    n = lab.shape[axis]
+    f, v = reset.clone(), lab.clone()
+    d = 1
+    while d < n:
+        # combine each element with the one d before it (after it when reverse)
+        if reverse:
+            fs = torch.cat([f.narrow(axis, d, n - d), torch.zeros_like(f.narrow(axis, 0, d))], dim=axis)
+            vs = torch.cat([v.narrow(axis, d, n - d), torch.full_like(v.narrow(axis, 0, d), BIG)], dim=axis)
+        else:
+            fs = torch.cat([torch.zeros_like(f.narrow(axis, 0, d)), f.narrow(axis, 0, n - d)], dim=axis)
+            vs = torch.cat([torch.full_like(v.narrow(axis, 0, d), BIG), v.narrow(axis, 0, n - d)], dim=axis)
+        v = torch.where(f, v, torch.minimum(vs, v))
+        f = f | fs
+        d *= 2
+    return v
+
+
+def _labels_consistent(lab, reset):
+    """() bool: True iff every within-run adjacent label pair is equal along
+    every axis, i.e. `lab` is the exact CCL fixed point (the reference's
+    `_labels_consistent_jnp`)."""
+    fg = ~reset
+    bad = torch.zeros((), dtype=torch.bool, device=lab.device)
+    for axis in range(3):
+        n = lab.shape[axis]
+        pair = fg.narrow(axis, 1, n - 1) & fg.narrow(axis, 0, n - 1)
+        diff = lab.narrow(axis, 1, n - 1) != lab.narrow(axis, 0, n - 1)
+        bad = bad | (pair & diff).any()
+    return ~bad
+
+
 def _init_labels(mask):
     """(z, y, x) raster index k*nx*ny + j*nx + i where `mask`, BIG elsewhere."""
     nx, ny, nz = mask.shape
@@ -148,6 +185,9 @@ def _ccl_sweeps_from_dists(lab0, dists, max_sweeps: int, passes: Optional[int] =
     else:
         bad = gpu_ops.ccl_check_consistency(lab, dists)
     return lab, bad[0] == 0
+
+
+_ccl_sweeps_pallas_from_dists = _ccl_sweeps_from_dists  # the reference's name
 
 
 def _ccl_sweeps_pallas(lab0, reset, max_sweeps: int, passes: Optional[int] = None):
@@ -283,15 +323,18 @@ def _component_stats_fast(labels_padded, dists, shape, max_roots: int, cand_k: i
             count_ok, cand_ok, runs_ok, compact_ok)
 
 
-def _validate(params: SegmentationParams):
+def _validate_thresholds(params: SegmentationParams):
     if not (math.isfinite(params.intensity_low) and math.isfinite(params.intensity_high)):
-        raise ValueError("intensity thresholds must be finite")
+        raise ValueError(
+            "intensity thresholds must be finite (the kernels pad volume "
+            "borders with -inf as the out-of-band fill)"
+        )
 
 
 def segment_volume(data, spacing, origin, params: SegmentationParams = SegmentationParams()) -> SegmentationResult:
     """Full fiducial + body segmentation of one (nx, ny, nz) volume tensor,
     on the volume's device. Integer scanner volumes are cast to f32 there."""
-    _validate(params)
+    _validate_thresholds(params)
     fused = params.closing_radius == 2 and params.use_pallas is not False
     dev = data.device
     data = data.to(torch.float32).contiguous()
@@ -330,8 +373,17 @@ def segment_volume(data, spacing, origin, params: SegmentationParams = Segmentat
 
 def finalize_segmentation(labels, roots, root_valid, counts, sums_ijk, num_components, complete,
                           converged, spacing, origin, params: SegmentationParams,
-                          count_ok, cand_ok, runs_ok, compact_ok) -> SegmentationResult:
-    """Blob-band selection + body extraction from per-component stats."""
+                          count_ok=None, cand_ok=None, runs_ok=None, compact_ok=None) -> SegmentationResult:
+    """Blob-band selection + body extraction from per-component stats.
+
+    Shared tail of `segment_volume` and the sharded path
+    (`parallel/shard_seg.py`): the stats are whole-volume; `labels` may be
+    one shard's (the body mask is then that shard's). A sub-certificate
+    left None is the reference's default: `count_ok` takes `complete`, the
+    others hold."""
+    true = torch.ones((), dtype=torch.bool, device=roots.device)
+    count_ok = complete if count_ok is None else count_ok
+    cand_ok, runs_ok, compact_ok = (true if c is None else c for c in (cand_ok, runs_ok, compact_ok))
     voxvol = spacing[0] * spacing[1] * spacing[2]
     vols = counts * voxvol
     in_band = root_valid & (vols >= params.min_volume_mm3) & (vols <= params.max_volume_mm3)
@@ -351,10 +403,10 @@ def finalize_segmentation(labels, roots, root_valid, counts, sums_ijk, num_compo
 
     # body: the largest component outside the fiducial band
     body_counts = torch.where(root_valid & ~in_band, counts, -1.0)
-    body_slot = torch.argmax(body_counts)
-    body_found = body_counts[body_slot] > 0
-    body_root = torch.where(body_found, roots[body_slot], -1)
-    body_volume = torch.where(body_found, counts[body_slot] * voxvol, 0.0)
+    body_slot = torch.argmax(body_counts).reshape(1)  # index_select: no host read of the slot
+    body_found = body_counts.index_select(0, body_slot)[0] > 0
+    body_root = torch.where(body_found, roots.index_select(0, body_slot)[0], -1)
+    body_volume = torch.where(body_found, counts.index_select(0, body_slot)[0] * voxvol, 0.0)
 
     return SegmentationResult(
         centroids_ras=centroid_ras,

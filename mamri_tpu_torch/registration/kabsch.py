@@ -1,18 +1,75 @@
 """Rigid (Horn/Kabsch) point-set alignment.
 
 Port of `mamri_tpu/registration/kabsch.py`: Horn's quaternion method, the
-top eigenvector of the symmetric 4x4 profile matrix (`torch.linalg.eigh`),
-not an SVD of the cross-covariance -- marker triplets are coplanar, which
-makes the covariance rank-deficient, and the symmetric eigenproblem stays
+top eigenvector of the symmetric 4x4 profile matrix, not an SVD of the
+cross-covariance -- marker triplets are coplanar, which makes the
+covariance rank-deficient, and the symmetric eigenproblem stays
 well-conditioned and never yields a reflection. q and -q give the same
 rotation, so the eigenvector's sign does not matter.
+
+On a card the eigenvector comes from a fixed number of cyclic Jacobi
+sweeps in plain tensor ops, not `torch.linalg.eigh`: eigh checks its
+solver's status on the host, which waits for the card, and the pose
+pipeline must queue its work without waiting
+(`MamriEngine.estimate_pose_async`). On the CPU nothing waits, and eigh is
+LAPACK's, as the reference's is on the CPU: an unconverged IK (10
+iterations) turns the last-bit differences between two correct
+eigenvectors into ~1e-4 rad, so the CPU keeps the reference's solver.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from mamri_tpu_torch.core.transforms import homogeneous
+
+# the six (p, q) planes of a 4x4 in three rounds of two disjoint rotations;
+# each round is one product J^T A J
+_JACOBI_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
+# quadratic convergence: 4x4 f32 matrices reach rounding in 4-5 sweeps
+_JACOBI_SWEEPS = 6
+
+
+@functools.lru_cache(maxsize=None)
+def _round_tables(dtype, device):
+    """Per round, (2, 4, 4) masks of the cosine entries (p, p), (q, q) and of
+    the sine entries (+1 at (p, q), -1 at (q, p)) of its two rotations."""
+    cos_m = torch.zeros((len(_JACOBI_ROUNDS), 2, 4, 4), dtype=dtype)
+    sin_m = torch.zeros_like(cos_m)
+    for r, (p1, q1, p2, q2) in enumerate(_JACOBI_ROUNDS):
+        for k, (p, q) in enumerate(((p1, q1), (p2, q2))):
+            cos_m[r, k, p, p] = cos_m[r, k, q, q] = 1.0
+            sin_m[r, k, p, q], sin_m[r, k, q, p] = 1.0, -1.0
+    return cos_m.to(device), sin_m.to(device)
+
+
+def _top_eigenvector(n):
+    """Eigenvector of the largest eigenvalue of each symmetric (..., 4, 4)
+    matrix: cyclic Jacobi rotations (Golub and Van Loan's symmetric Schur
+    pair per plane), then the column of the accumulated rotations whose
+    diagonal entry is largest."""
+    cos_m, sin_m = _round_tables(n.dtype, n.device)
+    eye = torch.eye(4, dtype=n.dtype, device=n.device)
+    a = n
+    v = eye.expand(n.shape)
+    for _ in range(_JACOBI_SWEEPS):
+        for r, (p1, q1, p2, q2) in enumerate(_JACOBI_ROUNDS):
+            app = torch.stack([a[..., p1, p1], a[..., p2, p2]], dim=-1)
+            aqq = torch.stack([a[..., q1, q1], a[..., q2, q2]], dim=-1)
+            apq = torch.stack([a[..., p1, q1], a[..., p2, q2]], dim=-1)
+            zero = apq == 0
+            tau = (aqq - app) / (2 * torch.where(zero, 1.0, apq))
+            t = torch.where(tau >= 0, 1.0, -1.0) / (tau.abs() + torch.hypot(torch.ones_like(tau), tau))
+            t = torch.where(zero, 0.0, t)
+            c = torch.rsqrt(1 + t * t)
+            rot = (eye + torch.einsum("...k,kij->...ij", c - 1, cos_m[r])
+                   + torch.einsum("...k,kij->...ij", t * c, sin_m[r]))
+            a = rot.transpose(-1, -2) @ a @ rot
+            v = v @ rot
+    top = torch.argmax(torch.diagonal(a, dim1=-2, dim2=-1), dim=-1)
+    return torch.gather(v, -1, top[..., None, None].expand(n.shape[:-1] + (1,)))[..., 0]
 
 
 def kabsch_rigid_transform(source, target):
@@ -39,8 +96,7 @@ def kabsch_rigid_transform(source, target):
         ],
         dim=-2,
     )
-    _, eigvecs = torch.linalg.eigh(n)  # ascending eigenvalues
-    q = eigvecs[..., :, -1]
+    q = torch.linalg.eigh(n)[1][..., -1] if n.device.type == "cpu" else _top_eigenvector(n)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     r = torch.stack(
         [

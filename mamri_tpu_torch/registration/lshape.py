@@ -111,7 +111,7 @@ def order_l_shape(points, l1: float, l2: float, tol: float, strict_reference_ord
         choice = torch.argmax(conds.to(torch.int32))
     else:
         choice = torch.argmin(torch.where(conds, errs, torch.inf))
-    return torch.where(any_ok, orders[choice], points), any_ok
+    return torch.where(any_ok, orders.index_select(0, choice.reshape(1))[0], points), any_ok
 
 
 def match_l_shaped_triplets(
@@ -144,7 +144,7 @@ def match_l_shaped_triplets(
         else:
             choice = torch.argmin(torch.where(ok, sig_err.sum(-1), torch.inf))
         found = ok.any()
-        idx = combos[choice]
+        idx = combos.index_select(0, choice.reshape(1))[0]
         ordered, _ = order_l_shape(points[idx], l1, l2, tol, strict_reference_order)
         used = used | (torch.zeros_like(used).index_fill(0, idx, True) & found)
         out_points.append(torch.where(found, ordered, 0.0))

@@ -503,7 +503,8 @@ def test_engine_fetch_and_host_syncs(cuda):
     """The engine's `_fetch` on the card equals the per-key `.cpu().numpy()`
     dict (keys, dtypes, shapes, values) and hands out arrays of their own;
     a warm `estimate_pose` under the sync debug mode reports no synchronizing
-    call from `api/engine.py`."""
+    call from the engine or the pipeline's modules (matching, Kabsch, IK,
+    segmentation)."""
     import warnings
 
     from mamri_tpu_torch.api import engine as E
@@ -538,7 +539,42 @@ def test_engine_fetch_and_host_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
-    assert not [s for s in syncs if "api/engine.py" in s.replace("\\", "/")], syncs
+    pipeline = ("api/engine.py", "registration/lshape.py", "registration/kabsch.py", "ik/residuals.py", "ik/lm.py",
+                "perception/segmentation.py")
+    assert not [s for s in syncs if s.rsplit(":", 1)[0].replace("\\", "/").endswith(pipeline)], syncs
+
+
+@pytest.mark.parametrize("shape", WORD_EDGE_SHAPES + [(40, 33, 50)])
+def test_close_init_label_dims_equal_twin(cuda, shape):
+    """Other raster multipliers than the block's own, as a halo-extended
+    shard of a larger volume labels: the same mask, the twin's labels."""
+    data = torch.as_tensor(_faces_volume(shape, seed=sum(shape) + 1)).to(cuda)
+    for dims in ((shape[0] * 4 + 8, shape[1]), (3 * shape[0], 2 * shape[1] + 5)):
+        _same(G.close_init(data, 65.0, 65535.0, label_dims=dims), G.close_init_plain(data, 65.0, 65535.0, dims))
+        assert torch.equal(G.close_init(data, 65.0, 65535.0, label_dims=dims)[0], G.close_init(data, 65.0, 65535.0)[0])
+
+
+@pytest.mark.parametrize("num_roots", [1, 128, 6000])
+def test_run_stats_exact_equals_twin(cuda, num_roots):
+    lab, lens, z0, roots = (torch.as_tensor(a).to(cuda) for a in _run_tables((40, 8, 256), num_roots, "mixed", seed=3))
+    got = G.run_stats(lab, lens, z0, roots, exact=True)
+    assert got.dtype == torch.int64
+    _same(got, G.run_stats_plain(lab, lens, z0, roots, exact=True))
+    _same(got.to(torch.float32), G.run_stats(lab, lens, z0, roots))
+
+
+@pytest.mark.parametrize("n_sp, radius", [(2, 2), (4, 2), (4, 1)])
+def test_sharded_segmentation_on_the_card_equals_segment_volume(cuda, n_sp, radius):
+    from mamri_tpu_torch.parallel.shard_seg import segment_volume_threads
+
+    data = torch.as_tensor(_volume((64, 64, 64), seed=9)).to(cuda)
+    params = S.SegmentationParams(max_sweeps=2, passes=5, max_roots=128, closing_radius=radius)
+    want = S.segment_volume(data, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0), params)
+    G.reset_launch_counts()
+    got = segment_volume_threads(data, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0), params, devices=[cuda] * n_sp, timeout=120)
+    for f in want._fields:
+        _same(getattr(got, f), getattr(want, f))
+    assert G.LAUNCHES["close_init" if radius == 2 else "scan_lines"] >= n_sp
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])

@@ -398,9 +398,11 @@ def test_port_imports_without_jax():
     in the `global` mode solves a scene, the scene exports as glTF, a
     simulated rig attaches, a CPU `plan_trajectory` finds a needle goal, a
     `PoseTracker.step` solves the scene read back by `load_volume`, a
-    `MamriServer` answers a `/estimate` over loopback, and `main(["info",
-    "--platform", "cpu"])` runs, and no module of jax or of the JAX package
-    `mamri_tpu` was loaded."""
+    `MamriServer` answers a `/estimate` over loopback, `main(["info",
+    "--platform", "cpu"])` runs, the sharded segmentation on a ThreadAxis
+    equals `segment_volume` and `run_sharded_batched` certifies on a 2 x 2
+    CPU mesh, and no module of jax or of the JAX package `mamri_tpu` was
+    loaded."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import numpy as np, torch\n"
@@ -468,6 +470,17 @@ def test_port_imports_without_jax():
         "with contextlib.redirect_stdout(io.StringIO()) as info:\n"
         "    assert main(['info', '--platform', 'cpu']) == 0\n"
         "assert json.loads(info.getvalue())['motor_letters'] == ['A', 'B', 'C', 'D', 'E', 'F']\n"
+        "import mamri_tpu_torch.parallel\n"
+        "from mamri_tpu_torch.parallel import collectives, dryrun, make_mesh, mesh, run_sharded_batched, shard_seg\n"
+        "cpu_mesh = make_mesh(4, axes=('dp', 'sp'), shape=(2, 2), devices=['cpu'] * 4)\n"
+        "params = segmentation.SegmentationParams(max_sweeps=2, passes=3, max_roots=128)\n"
+        "pad = (-vol.data.shape[0]) % 16\n"
+        "data = np.pad(vol.data, ((0, pad), (0, 0), (0, 0)))\n"
+        "seg = shard_seg.segment_volume_threads(torch.as_tensor(data), vol.spacing, vol.origin, params, ['cpu'] * 2)\n"
+        "want = segmentation.segment_volume(torch.as_tensor(data), vol.spacing, vol.origin, params)\n"
+        "assert all(torch.equal(getattr(seg, f), getattr(want, f)) for f in seg._fields)\n"
+        "out, _, certified = run_sharded_batched(e, cpu_mesh, np.stack([data] * 2), vol.spacing, vol.origin, sp_axis='sp')\n"
+        "assert certified and out['success'].all(), out\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None]\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in loaded)\n"
         "assert not any(m == 'mamri_tpu' or m.startswith('mamri_tpu.') for m in loaded), loaded\n"
