@@ -153,9 +153,24 @@
    `close_init` with `label_dims` (72x256x256, 136x512x192), `z_runs` with
    `x_off` and `scan_lines` at the general path's shard shapes are held
    against their twins and timed (`shard_ms_by_variant` in the JSON).
+14. The tools (`tools/*_torch.py`, through their own functions): the IK
+   oracle on bench.py's 4 scenes (the port's LM on the card at the engine's
+   defaults within 0.05 deg of SciPy's TRF converged from the truth, on a
+   CPU model, and never at a higher cost than TRF from the reference's
+   guesses); the trajectory TRF with its residual and Jacobian on the card
+   against a CPU model (within 1e-3 rad); a soak of 24 `PoseTracker` frames
+   at 192^3 uploaded as int16, two of them noisy (they escalate) and two of
+   another shape, every frame held to check_pose's criteria; batch scaling
+   at 256^3 with B = 1 and 4 (`MamriEngine._get_batch_pipeline` on
+   device-resident batches: every row equal to `estimate_pose` of the
+   volume, the int16 batch equal to the float32 one); the per-stage
+   profile at 256^3, each stage's outputs equal to its twins' on the host;
+   the codec bench on the host. None of the IK paths may launch a kernel.
+   Prints the phase's seconds.
 
 Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10, 11's global calls, 12's served
-requests and CLI calls, 13's sharded cases, escalation and dry run) runs
+requests and CLI calls, 13's sharded cases, escalation and dry run, 14's soak, batch scaling and stage
+profile) runs
 with the launch counts set to 0 just before it and read just after it (for
 phases 8, 12 and 13, the launches of their own calls are tallied); every kernel of a path
 must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
@@ -305,13 +320,6 @@ def launch_split(fn, make_args, tries=5):
 
 
 # ------------------------------------------------------------------ scenes
-def _base_tf(yaw, t=(-60.0, -120.0, 0.0)):
-    import torch
-    from mamri_tpu_torch.core import transforms as T
-
-    return T.translate(torch.tensor(t)) @ T.rot_x(-np.pi / 2) @ T.rot_z(yaw)
-
-
 def _markers(model, angles, base):
     import torch
     from mamri_tpu_torch.core.robot import marker_world_positions
@@ -321,38 +329,15 @@ def _markers(model, angles, base):
 
 
 def bench_scenes(model, shape, count=4):
-    """bench.py's scenes (its canonical pose and 3 seeded random ones), the
-    first `count` of them, each rendered into `shape` in the union bounding
-    box of all 4 (per-axis spacing where `shape` is not a cube): [(volume,
-    true angles, base transform), ...]."""
-    from mamri_tpu_torch.perception.volume import synthetic_volume
+    """bench.py's scenes (its canonical pose and 3 seeded random ones,
+    `api.demo.bench_scenes`), the first `count` of them, each rendered into
+    `shape` in the union bounding box of all 4 (per-axis spacing where
+    `shape` is not a cube): [(volume, true angles, base transform), ...]."""
+    from mamri_tpu_torch.api.demo import bench_scenes as build, render_bench_scene
 
-    rng = np.random.default_rng(23)
-    limits = model.limits_rad.cpu().numpy()
-    lo_lim, hi_lim = limits[:, 0], limits[:, 1]
-    scenes = [(TRUE_ANGLES, _base_tf(0.15))]
-    for _ in range(3):
-        frac = 0.25 + 0.5 * rng.random(6)
-        angles = (lo_lim + frac * (hi_lim - lo_lim)).astype(np.float32)
-        if abs(angles[4]) < 0.3:
-            angles[4] = np.float32(0.3 if angles[4] >= 0 else -0.3)
-        scenes.append((angles, _base_tf(float(rng.uniform(-0.4, 0.4)))))
-    pts = [_markers(model, a, b) for a, b in scenes]
-    all_pts = np.concatenate(pts)
-    lo = np.minimum(all_pts.min(0) - 40, BODY_CENTER - 75)
-    hi = np.maximum(all_pts.max(0) + 40, BODY_CENTER + 75)
-    lps_lo = np.array([-hi[0], -hi[1], lo[2]], dtype=np.float32)
-    lps_hi = np.array([-lo[0], -lo[1], hi[2]], dtype=np.float32)
-    ext = lps_hi - lps_lo
-    if shape[0] == shape[1] == shape[2]:
-        spacing = np.full(3, float(ext.max()) / shape[0], dtype=np.float32)  # bench.py's grid
-    else:
-        spacing = (ext / np.asarray(shape, dtype=np.float32)).astype(np.float32)
-    return [
-        (synthetic_volume(shape=shape, spacing=spacing, origin=lps_lo, fiducials_ras=p, fiducial_radius_mm=4.0,
-                          body_center_ras=BODY_CENTER, body_radii_mm=[45.0, 55.0, 65.0]), a, b)
-        for p, (a, b) in list(zip(pts, scenes))[:count]
-    ]
+    cube = shape[0] == shape[1] == shape[2]
+    scenes, spacing, origin, body_center = build(model, shape[0] if cube else shape)
+    return [(render_bench_scene(p, shape, spacing, origin, body_center), a, b) for a, b, p in scenes[:count]]
 
 
 def bench_scene(model, shape):
@@ -364,9 +349,10 @@ def bench_scene(model, shape):
 
 def test_scene(model, spacing):
     """tests/test_engine.py's scene (`_make_scene`) at `spacing` mm."""
+    from mamri_tpu_torch.api.demo import bench_base_tf
     from mamri_tpu_torch.perception.volume import synthetic_volume
 
-    pts = _markers(model, TRUE_ANGLES, _base_tf(0.15))
+    pts = _markers(model, TRUE_ANGLES, bench_base_tf(0.15))
     lo = np.minimum(pts.min(0) - 40, BODY_CENTER - 75)
     hi = np.maximum(pts.max(0) + 40, BODY_CENTER + 75)
     lps_lo = np.array([-hi[0], -hi[1], lo[2]])
@@ -1047,6 +1033,7 @@ def phase_stream(model, vol512, vol256, card):
 
     import torch
     from mamri_tpu_torch import native
+    from mamri_tpu_torch.api.demo import bench_base_tf
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.api.streaming import PoseTracker
     from mamri_tpu_torch.perception import gpu_ops
@@ -1057,7 +1044,7 @@ def phase_stream(model, vol512, vol256, card):
     from mamri_tpu_torch.utils.trace import Tracer
 
     sp, org = vol512.spacing, vol512.origin
-    base = _base_tf(0.15)
+    base = bench_base_tf(0.15)
     poses = [TRUE_ANGLES + np.float32(0.02 * k) for k in range(STREAM_DEPTH)]
     jump = TRUE_ANGLES + JUMP
     t0 = time.perf_counter()
@@ -2188,6 +2175,140 @@ def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
     print(f"phase 13 (sharded segmentation and the mesh) took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------- phase 14: the tools
+TOOL_SOAK_SIZE = 192  # the soak's default: at 128^3 (3.6 mm voxels) two bench scenes miss the 1 deg J1 check,
+# mamri_tpu's pose as much as the port's (tests/test_torch_tools.py::test_soak_frames_at_128_match_the_reference)
+TOOL_SOAK_FRAMES = 24
+TOOL_SOAK_NOISY_EVERY, TOOL_SOAK_ALT_EVERY = 10, 12  # noisy frames 9 and 19, a shape change at 11 and 23
+TOOL_BATCH_SIZES, TOOL_BATCH_MICRO = [1, 4], [0, 2]
+TRAJECTORY_TRF_ANGLES = np.array([0.4, 0.3, -0.5, 0.2, 0.6, -0.3], dtype=np.float32)  # tests/test_ik_trf_oracle.py
+
+
+def load_tool(name):
+    """tools/<name>_torch.py as a module (tools/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", os.path.join(REPO, "tools", f"{name}_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tensors(out):
+    """The tensors of a (nested) tuple of outputs, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return [out]
+
+
+def phase_tools(model, card, paths, device="cuda"):
+    """The port's tools (tools/*_torch.py) through their own functions: the
+    IK oracle on bench.py's 4 scenes (the LM on the card, TRF on the CPU),
+    the trajectory TRF on a card model against a CPU model, a soak of
+    `PoseTracker` frames, batch scaling at 256^3 and the per-stage profile
+    at 256^3 (each kernel path counted), and the codec bench on the host."""
+    import torch
+    from mamri_tpu_torch.api.demo import bench_scenes
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.core.robot import fk_all_links, load_robot_model
+    from mamri_tpu_torch.ik.trf import solve_trajectory_trf
+    from mamri_tpu_torch.perception import gpu_ops
+
+    t_phase = time.perf_counter()
+
+    # (a) the oracle: LM within 0.05 deg of TRF from the truth, never a higher cost than TRF
+    t0, tally = time.perf_counter(), {}
+    summary, lm_vs_trf = with_counts(gpu_ops, tally, load_tool("ik_oracle").run_oracle, device, 4, sys.stdout)
+    print("ik_oracle summary: " + json.dumps({k: v for k, v in summary.items() if k != "scenes"}))
+    print(f"ik_oracle max |LM - TRF from the truth| deg by scene: {json.dumps(lm_vs_trf)} "
+          f"({time.perf_counter() - t0:.1f} s, LM on {device})")
+    if max(lm_vs_trf.values()) >= 0.05:
+        raise AssertionError(f"ik_oracle: the LM is >= 0.05 deg from TRF from the truth: {lm_vs_trf}")
+    if not summary["lm_cost_le_trf_cost_everywhere"]:
+        raise AssertionError("ik_oracle: the LM's cost exceeds TRF's from the reference's guesses")
+
+    # (b) the trajectory TRF with its residual on the card against a CPU model
+    host, card_model = load_robot_model(device="cpu"), load_robot_model(device=device)
+    base = np.eye(4, dtype=np.float32)
+    needle = fk_all_links(host, torch.from_numpy(TRAJECTORY_TRF_ANGLES),
+                          torch.from_numpy(base))[host.link_index("Needle")].numpy()
+    target = needle.copy()
+    target[:3, 0] = -needle[:3, 0]
+    solved = {}
+    for where, m in (("cpu", host), (device, card_model)):
+        t0 = time.perf_counter()
+        solved[where] = with_counts(gpu_ops, tally, solve_trajectory_trf, m, target, base,
+                                    current_angles=TRAJECTORY_TRF_ANGLES + 0.3)
+        print(f"trajectory TRF, residual on {where}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+              f"nfev {solved[where].nfev}, position error {solved[where].rmse:.2e} mm")
+    got, want = solved[device], solved["cpu"]
+    gap = float(np.abs(got.per_guess - want.per_guess).max())
+    pick_gap = float(np.abs(got.angles - want.per_guess[got.best_guess]).max())
+    print(f"trajectory TRF card against CPU: per-guess {gap:.2e} rad, the pick {pick_gap:.2e} rad "
+          f"(costs card {got.per_guess_cost.tolist()} CPU {want.per_guess_cost.tolist()})")
+    if not (gap < 1e-3 and pick_gap < 1e-3 and got.rmse < 1.0):
+        raise AssertionError("trajectory TRF: the card model parts from the CPU model by >= 1e-3 rad")
+    if any(tally.values()):
+        raise AssertionError(f"the oracle or the trajectory TRF launched a kernel: {tally}")
+
+    # (c) the soak: every frame passes check_pose's criteria
+    soak = load_tool("soak")
+    scenes = bench_scenes(model, TOOL_SOAK_SIZE)[0]
+    vols, shape_a, shape_b = soak.soak_volumes(model, TOOL_SOAK_SIZE)
+
+    def check_frame(i, kind, _, res):
+        truth = scenes[i % len(scenes)][0] if kind == "clean" else scenes[0][0]
+        check_estimate(res, truth, f"soak frame {i} ({kind})", rmse_max=1.5 if kind == "noisy" else 0.5)
+
+    engine, tally = MamriEngine(device=device), {}
+    run = with_counts(gpu_ops, tally, soak.run_soak, engine, vols, TOOL_SOAK_FRAMES, TOOL_SOAK_NOISY_EVERY,
+                      TOOL_SOAK_ALT_EVERY, check_frame)
+    rec = soak.soak_record(TOOL_SOAK_FRAMES, engine, *run, shape_a, shape_b)
+    print(f"soak_torch: {json.dumps(rec)} ({card})")
+    if rec["failures"]:
+        raise AssertionError("soak: a frame failed")
+    paths["soak"] = read_tally(tally, DEFAULT_PATH_KERNELS, "soak")
+
+    # (d) batch scaling at 256^3: rows equal single calls, int16 equal to float32
+    scaling, tally = load_tool("batch_scaling"), {}
+    vol = scaling.bench_batch_volume(model, 256)
+    done = with_counts(gpu_ops, tally, scaling.scale, MamriEngine(device=device), vol, TOOL_BATCH_SIZES,
+                       TOOL_BATCH_MICRO, 2)
+    for rec, small in done:
+        if small is None or not (rec["success"] and rec["certified"]):
+            raise AssertionError(f"batch scaling: {rec}")
+    if not done[0][0].get("int16_matches"):
+        raise AssertionError("batch scaling: the int16 batch's angles differ from the float32 batch's")
+    single = MamriEngine(device=device).estimate_pose(vol, store_state=False)
+    check_estimate(single, TRUE_ANGLES, "batch scaling single 256^3")
+    for rec, small in done:
+        for row in range(rec["batch"]):
+            if not np.array_equal(small["angles"][row], single.angles_rad):
+                raise AssertionError(f"batch scaling B={rec['batch']} row {row}: {small['angles'][row]} "
+                                     f"!= estimate_pose {single.angles_rad}")
+    print(f"batch scaling: every row of B = {TOOL_BATCH_SIZES} equals estimate_pose, exactly ({card})")
+    paths["batch_scaling"] = read_tally(tally, DEFAULT_PATH_KERNELS[:-1], "batch scaling")
+
+    # (e) the per-stage profile at 256^3: each stage's kernels against the twins on the host
+    profile, tally = load_tool("profile_stages"), {}
+    data = profile.profile_scene(256)
+    rows = with_counts(gpu_ops, tally, profile.run_stages, torch.from_numpy(data).to(device), REPS)
+    t0 = time.perf_counter()
+    twins = profile.run_stages(torch.from_numpy(data), 0)
+    for (name, ms, out), (_, _, want) in zip(rows, twins):
+        got_t, want_t = _tensors(out), _tensors(want)
+        if len(got_t) != len(want_t) or not all(torch.equal(g.cpu(), w) for g, w in zip(got_t, want_t)):
+            raise AssertionError(f"profile_stages {name}: the kernels disagree with their twins")
+        print(f"profile_stages 256^3 {name}: {ms:.4f} ms (CUDA events, median of {REPS}), exact ({card})")
+    print(f"profile_stages: the twins on the host took {time.perf_counter() - t0:.1f} s")
+    paths["profile_stages"] = read_tally(tally, ("close_init", "reset_distances", "run_min", "check", "z_runs",
+                                                 "run_stats"), "profile stages")
+
+    # (f) the codec bench, host only
+    load_tool("codec_bench").main(["--size", "64", "--reps", "3"])
+    print(f"phase 14 (tools): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2339,6 +2460,9 @@ def main() -> int:
     shard_kernel_checks(vol256, vol512, card, failures, timings, errs)
     if failures:
         raise AssertionError("kernels disagree with their twins at the shard shapes:\n" + "\n".join(failures))
+
+    # ---- phase 14: the tools: the IK oracle, the trajectory TRF, a soak, batch scaling, the stage profile, codecs
+    phase_tools(model, card, paths)
 
     main_t = timings["256^3"]
     kernels = []

@@ -797,17 +797,8 @@ class MamriEngine:
         data_np = np.asarray(data_batch)
         if microbatch is not None and data_np.shape[0] % microbatch:
             raise ValueError(f"microbatch {microbatch} must divide batch {data_np.shape[0]}")
-        f32 = torch.float32
         data = self._upload(data_np)
-        fixed = (
-            self._upload(spacing, f32),
-            self._upload(origin, f32),
-            self._upload(np.eye(4, dtype=np.float32)),
-            self._upload(False),
-            self._upload(False),
-            self._upload(bool(apply_correction)),
-            self._upload(np.zeros(self.model.num_joints, dtype=np.float32)),
-        )
+        fixed = self._batch_fixed(spacing, origin, apply_correction)
         out = self._run_batch(data, np.arange(data_np.shape[0]), params, fixed, microbatch)
         certified = out["seg_converged"] & out["roots_complete"] & out["blobs_complete"]
         while not certified.all():
@@ -840,6 +831,37 @@ class MamriEngine:
             certified[fail] = sub["seg_converged"] & sub["roots_complete"] & sub["blobs_complete"]
             params = stronger
         return out
+
+    def _batch_fixed(self, spacing, origin, apply_correction) -> tuple:
+        """The per-volume program's arguments after the scan for every volume
+        of a batch: no saved baseplate, zero current angles."""
+        f32 = torch.float32
+        return (
+            self._upload(spacing, f32),
+            self._upload(origin, f32),
+            self._upload(np.eye(4, dtype=np.float32)),
+            self._upload(False),
+            self._upload(False),
+            self._upload(bool(apply_correction)),
+            self._upload(np.zeros(self.model.num_joints, dtype=np.float32)),
+        )
+
+    def _get_batch_pipeline(self, vol_shape, params: SegmentationParams, microbatch: Optional[int] = None):
+        """The reference's batch hook (mamri_tpu/api/engine.py:632) over
+        `_run_batch`: fn(data, spacing, origin, apply_correction) -> {key:
+        (B, ...) host array} for a (B, *vol_shape) batch already on the
+        engine's device, at `params` with no escalation, one fetch per
+        `microbatch` volumes."""
+
+        def batched(data, spacing, origin, apply_correction=False):
+            if tuple(data.shape[1:]) != tuple(vol_shape):
+                raise ValueError(f"batch of {tuple(data.shape[1:])} volumes, pipeline for {tuple(vol_shape)}")
+            if microbatch is not None and data.shape[0] % microbatch:
+                raise ValueError(f"microbatch {microbatch} must divide batch {data.shape[0]}")
+            fixed = self._batch_fixed(spacing, origin, apply_correction)
+            return self._run_batch(data, np.arange(data.shape[0]), params, fixed, microbatch)
+
+        return batched
 
     def _run_batch(self, data, rows, params, fixed, microbatch) -> dict:
         """{key: (len(rows), ...) host array}: the per-volume program on each

@@ -73,6 +73,43 @@ def trajectory_pose_residual(model: RobotModel, angles, base_tf, target_tf, orie
     return torch.cat([pos_err, orient_err])
 
 
+def _wrap_pi(a):
+    return torch.where(a > math.pi, a - 2 * math.pi, torch.where(a < -math.pi, a + 2 * math.pi, a))
+
+
+def symmetry_twin(angles):
+    """The chain's exact marker-preserving symmetry: (J1 + pi, -J2, -J3,
+    J4 + pi, J5, J6) puts every Joint4 and Joint6 marker at the same world
+    position (the IS-PA-PA-IS-PA-IS axis pattern), so the full-chain
+    objective has two branches of exactly equal cost."""
+    a = torch.as_tensor(angles)
+    return torch.stack([_wrap_pi(a[0] + math.pi), -a[1], -a[2], _wrap_pi(a[3] + math.pi), a[4], a[5]])
+
+
+def wrist_twin(angles):
+    """The wrist's exact Joint6-frame-preserving flip (J4 + pi, -J5, J6 + pi):
+    the Joint6 markers stay put and Joint4's turn 180 degrees about its axis,
+    a strong local minimum with Joint4 weighted 0.05 and an exact tie
+    without it."""
+    a = torch.as_tensor(angles)
+    return torch.stack([a[0], a[1], a[2], _wrap_pi(a[3] + math.pi), -a[4], _wrap_pi(a[5] + math.pi)])
+
+
+def ik_branch_family(angles):
+    """(12, nj): {id, shoulder twin} x {id, wrist flip} x the Joint6 winding
+    {-360, 0, +360} degrees, in that order. Every member puts the Joint6
+    markers at the same positions."""
+    angles = torch.as_tensor(angles)
+    wind = torch.zeros_like(angles)
+    wind[5] = 2 * math.pi
+    cands = []
+    for shoulder in (angles, symmetry_twin(angles)):
+        for branch in (shoulder, wrist_twin(shoulder)):
+            for w in (-1.0, 0.0, 1.0):
+                cands.append(branch + w * wind)
+    return torch.stack(cands)
+
+
 def random_restart_guesses(model: RobotModel, count: int, seed: int):
     """(count, J) guesses uniform in 0.8 x the joint limits, drawn from a CPU
     `torch.Generator` seeded with `seed`: the same guesses on every device."""

@@ -120,3 +120,31 @@ def synthetic_volume(
         rng = np.random.default_rng(seed)
         data = data + rng.normal(0.0, noise_sigma, size=shape).astype(np.float32)
     return Volume(data=data, spacing=spacing, origin=origin)
+
+
+def rasterized_sphere_centroids(points_ras, radius_mm, spacing, origin_lps):
+    """Centroid (RAS, mm) of the voxel-center set each sphere rasterizes to.
+
+    Exactly the set `synthetic_volume` paints (voxel center within radius of
+    the sphere center, RAS metric) and therefore exactly the centroid the
+    segmentation stage measures for an isolated spherical fiducial — the
+    closed-form model of voxel-grid quantization noise used by the IK oracle
+    (tools/ik_oracle_torch.py)."""
+    out = []
+    spacing = np.asarray(spacing, dtype=np.float64)
+    origin = np.asarray(origin_lps, dtype=np.float64)
+    r = float(radius_mm)
+    for c in np.asarray(points_ras, dtype=np.float64).reshape(-1, 3):
+        lps = np.array([-c[0], -c[1], c[2]])
+        idx = (lps - origin) / spacing
+        lo = np.floor(idx - r / spacing).astype(int) - 1
+        hi = np.ceil(idx + r / spacing).astype(int) + 2
+        gi, gj, gk = np.mgrid[lo[0] : hi[0], lo[1] : hi[1], lo[2] : hi[2]]
+        px = origin[0] + spacing[0] * gi
+        py = origin[1] + spacing[1] * gj
+        pz = origin[2] + spacing[2] * gk
+        d2 = (-px - c[0]) ** 2 + (-py - c[1]) ** 2 + (pz - c[2]) ** 2
+        m = d2 <= r * r
+        cen = np.array([px[m].mean(), py[m].mean(), pz[m].mean()])
+        out.append([-cen[0], -cen[1], cen[2]])
+    return np.asarray(out)

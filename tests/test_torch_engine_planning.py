@@ -7,7 +7,8 @@ Entry points, collision worlds and keyframes that do not depend on the goal
 are held exact, normals at 1e-5, paths at 1e-6 and position errors at
 1e-2 mm. The goal is one of several exact answers (tests/test_torch_planning.py
 says why): the port's is held to the reference's residual, to JAX's goal up
-to the chain's exact twins (`mamri_tpu.ik.residuals.ik_branch_family`)
+to the chain's exact twins (the port's `ik.residuals.ik_branch_family`, held
+to the reference's by tests/test_torch_trf.py)
 within 1e-3 rad, and its path and flags to what the reference's own
 functions make of that goal.
 """
@@ -22,11 +23,11 @@ from mamri_tpu import planning as JP
 from mamri_tpu.api import MamriEngine as JaxEngine
 from mamri_tpu.core import transforms as jT
 from mamri_tpu.core.robot import marker_world_positions
-from mamri_tpu.ik.residuals import ik_branch_family
 from mamri_tpu.ik.residuals import trajectory_pose_residual as j_traj_res
 from mamri_tpu.perception.volume import synthetic_volume
 from mamri_tpu_torch.api.engine import MamriEngine
 from mamri_tpu_torch.api.types import TrajectoryPlan
+from mamri_tpu_torch.ik.residuals import ik_branch_family
 from mamri_tpu_torch.perception.volume import Volume
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
@@ -98,7 +99,7 @@ def test_heuristic_plan_against_jax(planned):
     target_tf = JP.needle_target_frame(jnp.asarray(BODY_CENTER), jnp.asarray(t_entry.point_ras), 5.0)
     res = np.asarray(j_traj_res(jeng.model, goal, jnp.asarray(jeng.baseplate_tf), target_tf))
     assert np.linalg.norm(res[:3]) < 1e-2
-    twins = np.asarray(ik_branch_family(jnp.asarray(j_plan.goal_angles)))
+    twins = ik_branch_family(torch.tensor(np.asarray(j_plan.goal_angles, np.float32))).numpy()
     assert np.abs(twins - t_plan.goal_angles[None]).max(axis=1).min() < 1e-3
     np.testing.assert_array_equal(t_plan.goal_steps, jeng.convert_angles_to_steps(t_plan.goal_angles))
 

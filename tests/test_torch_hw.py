@@ -64,10 +64,23 @@ def rig():
     mc.disconnect()
 
 
-def _tick(clock, enc_dev, dt=0.15, wait=0.003):
+def _until(pred, timeout_s=2.0):
+    """Poll `pred` until it holds or `timeout_s` passes; its last value.
+    The encoder's listener is a thread, and a fixed sleep may end before
+    the scheduler has run it."""
+    deadline = time.time() + timeout_s
+    while not pred() and time.time() < deadline:
+        time.sleep(0.001)
+    return pred()
+
+
+def _tick(clock, robot, enc_dev, enc, dt=0.15):
+    """Advance the fake clock, emit one encoder line and wait until the
+    listener has parsed it (the fake clock stands still meanwhile, so the
+    robot's position is the line's)."""
     clock.advance(dt)
     enc_dev.emit()
-    time.sleep(wait)  # the listener thread parses the line
+    assert _until(lambda: enc.latest_position == robot.true_position()), "the listener missed an encoder line"
 
 
 # ------------------------------------------------------ tests/test_hw.py
@@ -91,9 +104,7 @@ def test_encoder_listener_tracks_motion_and_skips_garbage(rig):
     clock.advance(10.0)
     for _ in range(4):
         enc_dev.emit()
-    deadline = time.time() + 1.0
-    while time.time() < deadline and enc.latest_position[0] != 200:
-        time.sleep(0.005)
+    _until(lambda: enc.latest_position[0] == 200, timeout_s=1.0)
     assert enc.latest_position[0] == 200
 
 
@@ -102,7 +113,7 @@ def test_executor_move_to_pose_success(rig):
     runner = RobotTaskRunner(mc, enc, clock=clock)
     runner.start("move_to_pose", target_steps=[120, 40, -60, 10, 0, 5])
     for _ in range(100):
-        _tick(clock, enc_dev)
+        _tick(clock, robot, enc_dev, enc)
         st = runner.step()
         if st.outcome is not TaskOutcome.RUNNING:
             break
@@ -118,7 +129,7 @@ def test_executor_trajectory_keyframes(rig):
     seen = set()
     for _ in range(300):
         seen.add(tuple(runner.state.target_steps.tolist()))
-        _tick(clock, enc_dev)
+        _tick(clock, robot, enc_dev, enc)
         st = runner.step()
         if st.outcome is not TaskOutcome.RUNNING:
             break
@@ -134,7 +145,7 @@ def test_executor_stall_reissues_command(rig):
     runner.start("jog", target_steps=[100, 0, 0, 0, 0, 0])
     reissues, last = 0, runner.state.last_command_time
     for _ in range(60):
-        _tick(clock, enc_dev)
+        _tick(clock, robot, enc_dev, enc)
         st = runner.step()
         if st.last_command_time != last:
             reissues, last = reissues + 1, st.last_command_time
@@ -149,7 +160,7 @@ def test_executor_timeout(rig):
     runner = RobotTaskRunner(mc, enc, clock=clock)
     runner.start("move_to_pose", target_steps=[500, 0, 0, 0, 0, 0], timeout_s=5.0)
     for _ in range(100):
-        _tick(clock, enc_dev, dt=0.3, wait=0.002)
+        _tick(clock, robot, enc_dev, enc, dt=0.3)
         st = runner.step()
         if st.outcome is not TaskOutcome.RUNNING:
             break
@@ -160,7 +171,7 @@ def test_executor_user_stop_soft_stops(rig):
     clock, robot, mc_dev, enc_dev, mc, enc = rig
     runner = RobotTaskRunner(mc, enc, clock=clock)
     runner.start("move_to_pose", target_steps=[10000, 0, 0, 0, 0, 0])
-    _tick(clock, enc_dev, dt=0.5)
+    _tick(clock, robot, enc_dev, enc, dt=0.5)
     runner.step()
     runner.request_stop()
     assert runner.step().outcome is TaskOutcome.STOPPED
@@ -171,12 +182,12 @@ def test_executor_user_stop_soft_stops(rig):
 def test_zeroing_protocol(rig):
     clock, robot, mc_dev, enc_dev, mc, enc = rig
     mc.command_pose([300, 0, 0, 0, 0, 0])
-    _tick(clock, enc_dev, dt=10.0, wait=0.005)
+    _tick(clock, robot, enc_dev, enc, dt=10.0)
     assert enc.latest_position[0] == 300
     enc.reset_counters()
     mc.zero_counters()
     enc_dev.emit()
-    time.sleep(0.02)
+    _until(lambda: enc.latest_position[0] == 0)
     assert enc.latest_position[0] == 0 and mc.query_positions()[0] == 0
 
 
@@ -191,11 +202,11 @@ def test_sync_monitor_corrects_drift(rig):
     robot.advance()
     robot.missed_steps[1] += 30.0
     for _ in range(10):
-        _tick(clock, enc_dev, dt=0.25)
+        _tick(clock, robot, enc_dev, enc, dt=0.25)
         sync.step()
     assert sync.corrections >= 1
     for _ in range(20):
-        _tick(clock, enc_dev, dt=0.25)
+        _tick(clock, robot, enc_dev, enc, dt=0.25)
         sync.step()
     assert mc.query_positions() == enc.latest_position == [150, 200, 0, 0, 0, 0]
 
@@ -451,9 +462,8 @@ def test_attach_hardware_matches_jax():
             clock.advance(0.15)
             for stack, robot, enc_dev in rigs:
                 enc_dev.emit()
-                deadline = time.time() + 2.0  # the listener has parsed exactly this line
-                while stack.encoder.latest_position != robot.true_position() and time.time() < deadline:
-                    time.sleep(0.001)
+                # the listener has parsed exactly this line
+                _until(lambda: stack.encoder.latest_position == robot.true_position())
             states = [stack.runner.step() for stack, _, _ in rigs]
             assert states[0].outcome.value == states[1].outcome.value
             assert states[0].keyframe_index == states[1].keyframe_index
