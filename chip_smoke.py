@@ -167,12 +167,23 @@
    profile at 256^3, each stage's outputs equal to its twins' on the host;
    the codec bench on the host. None of the IK paths may launch a kernel.
    Prints the phase's seconds.
+15. `bench_torch.py`, the port's bench.py, through `bench_torch.run` on
+   the card cut in depth (`BENCH_SMOKE`: bench.py's four 256^3 scenes as
+   batches of 2, one rep, 2 stream frames, 2 x 2 chained calls, one
+   planning rep, the noisy scan, the 512x512x192 volume). Its record is
+   printed on a line of its own; every scene must be certified and solved,
+   every stream frame solved with no ROI fallback, the plan collision-free,
+   the noisy scan certified without truncation and successful with over
+   1000 speckle components, the large volume certified and successful.
+   The chained calls run again on the canonical 256^3 scene under the sync
+   debug mode: none may synchronize from `PIPELINE_FILES`. Prints the
+   phase's seconds.
 
 Each kernel path (phases 3-5, 6, 7, 8's batch and its async frames, 10, 11's global calls, 12's served
 requests and CLI calls, 13's sharded cases, escalation and dry run, 14's soak, batch scaling and stage
-profile) runs
+profile, 15's bench) runs
 with the launch counts set to 0 just before it and read just after it (for
-phases 8, 12 and 13, the launches of their own calls are tallied); every kernel of a path
+phases 8 and 12-15, the launches of their own calls are tallied); every kernel of a path
 must have launched in it. Planning launches no kernel. The last two lines are the kernels' JSON and the result JSON; any
 failure raises and exits non-zero. A kernel's JSON entry gives its slowest
 variant at 256^3 (`ms`, `plain_ms`, `bound_ms` of that variant) and every
@@ -2309,6 +2320,65 @@ def phase_tools(model, card, paths, device="cuda"):
     print(f"phase 14 (tools): {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------- phase 15: bench_torch.py
+BENCH_SMOKE = dict(size=256, batch=2, reps=1, stream_frames=2, large="512x512x192", chain_k=2, chain_samples=2,
+                   plan_reps=1)
+
+
+def bench_record_failures(rec):
+    """What the small bench record on the card must show: every scene
+    certified and solved, every stream frame solved with no ROI fallback,
+    a collision-free plan, the noisy scan certified without truncation
+    (bench.py:389-393) with its speckle components counted, the large
+    volume certified and solved."""
+    bad = []
+    if not rec["pipeline_success"]:
+        bad.append("pipeline_success is false")
+    bad += [f"scene {s['scene']}: {s}" for s in rec["per_scene"] if not (s["certified"] and s["solved"])]
+    st = rec["streaming"]
+    if not st["all_success"] or st["roi_fallbacks"] != 0:
+        bad.append(f"streaming: all_success {st['all_success']} ({st['failed_modes']}), "
+                   f"roi_fallbacks {st['roi_fallbacks']}")
+    if not rec["planning"]["success_collision_free"]:
+        bad.append(f"planning: {rec['planning']}")
+    ns = rec["noisy_scan"]
+    if not (ns["certified_no_truncation"] and ns["success"] and ns["speckle_components"] > 1000):
+        bad.append(f"noisy_scan: {ns}")
+    lv = rec["large_volume"]
+    if not (lv["success"] and lv["certified"]):
+        bad.append(f"large_volume: {lv}")
+    return bad
+
+
+def phase_bench(vol256, card, paths, device="cuda", cfg=BENCH_SMOKE):
+    """`bench_torch.run` on the card at bench.py's 256^3 scenes and
+    512x512x192 volume, cut in depth (`BENCH_SMOKE`); its record is printed
+    and checked, its launches counted (`launches_by_path["bench"]`, the
+    compact run stats of the noisy scan among them). Then the chained calls
+    again, on `vol256` (bench.py's scene 0), under the sync debug mode: none
+    may synchronize from `PIPELINE_FILES`."""
+    import bench_torch
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.perception import gpu_ops
+
+    t_phase, tally = time.perf_counter(), {}
+    rec = with_counts(gpu_ops, tally, bench_torch.run, device, **cfg)
+    print("bench_torch record: " + json.dumps(rec))
+    engine = MamriEngine(device=device)
+    _, f1 = bench_torch.make_fns(engine, vol256.shape, vol256.spacing, vol256.origin, engine.seg_params)
+    dev_one = engine._upload(vol256.data)
+    (p50, _), where = syncs_in(lambda: with_counts(gpu_ops, tally, bench_torch.chained_latency, engine, f1, dev_one,
+                                                   cfg["chain_k"], 1))
+    print(f"host syncs in {cfg['chain_k']} chained bench calls ({p50:.1f} ms a call): {sum(where.values())} "
+          f"{json.dumps(where)} ({card})")
+    bad = bench_record_failures(rec)
+    bad += [f"chained calls synchronize at {at}" for at in where if at.startswith(PIPELINE_FILES)]
+    if bad:
+        raise AssertionError("bench_torch on the card:\n" + "\n".join(bad))
+    paths["bench"] = read_tally(tally, DEFAULT_PATH_KERNELS, "bench")
+    print(f"phase 15 (bench_torch): {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2463,6 +2533,9 @@ def main() -> int:
 
     # ---- phase 14: the tools: the IK oracle, the trajectory TRF, a soak, batch scaling, the stage profile, codecs
     phase_tools(model, card, paths)
+
+    # ---- phase 15: bench_torch.py, bench.py's record on the card, cut in depth
+    phase_bench(vol256, card, paths)
 
     main_t = timings["256^3"]
     kernels = []
