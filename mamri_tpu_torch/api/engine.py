@@ -4,7 +4,8 @@ export and the hardware loop.
 
 Port of `mamri_tpu/api/engine.py` (`_LRUCache`, `MamriEngine`,
 `HardwareStack`), every public method of both, with the reference's tracer
-spans. The per-volume program (segmentation -> triplet matching in the
+spans and, inside the scan -> pose path, the port's own (`estimate_pose`).
+The per-volume program (segmentation -> triplet matching in the
 `best`, `strict` or `global` mode -> baseplate fit -> full-chain IK -> motor
 steps) runs eagerly on the engine's device, cached per (shape, params) as
 the reference caches its jitted programs; the host reads the certificates
@@ -48,7 +49,7 @@ from mamri_tpu_torch.planning.heuristic import check_path_collisions, heuristic_
 from mamri_tpu_torch.planning.trajectory import TrajectoryIKResult, solve_trajectory_ik
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets, match_l_shaped_triplets_global
-from mamri_tpu_torch.utils.trace import Tracer
+from mamri_tpu_torch.utils.trace import Tracer, current_count, current_span
 
 logger = logging.getLogger(__name__)
 
@@ -474,7 +475,8 @@ class MamriEngine:
         match_mode = self.match_mode
 
         def pipeline(data, spacing, origin, saved_tf, use_saved, have_saved, apply_correction, current_angles):
-            seg = seg_fn(data, spacing, origin, seg_params)
+            with current_span("pose.segment"):
+                seg = seg_fn(data, spacing, origin, seg_params)
             if match_mode == "global":
                 matches = match_l_shaped_triplets_global(seg.centroids_ras, seg.blob_valid, arm_lengths)
             else:
@@ -496,23 +498,25 @@ class MamriEngine:
             source = torch.where(
                 use_saved_now, 2, torch.where(bp_found, 1, torch.where(fallback_saved, 3, 0))
             ).to(torch.int32)
-            ik = solve_full_chain_ik(
-                model,
-                matches.points[3],
-                base_tf,
-                current_angles=current_angles,
-                apply_correction=apply_correction,
-                joint4_targets=matches.points[2],
-                joint4_found=matches.found[2],
-                num_iters=ik_iters,
-                num_random_restarts=ik_restarts,
-                joint2_targets=matches.points[1],
-                joint2_found=matches.found[1],
-            )
+            with current_span("pose.ik"):
+                ik = solve_full_chain_ik(
+                    model,
+                    matches.points[3],
+                    base_tf,
+                    current_angles=current_angles,
+                    apply_correction=apply_correction,
+                    joint4_targets=matches.points[2],
+                    joint4_found=matches.found[2],
+                    num_iters=ik_iters,
+                    num_random_restarts=ik_restarts,
+                    joint2_targets=matches.points[1],
+                    joint2_found=matches.found[1],
+                )
+                steps = angles_to_steps(ik.angles, model.steps_per_rev)
             return {
                 "success": base_ok & matches.found[3],
                 "angles": ik.angles,
-                "steps": angles_to_steps(ik.angles, model.steps_per_rev),
+                "steps": steps,
                 "rmse": ik.rmse,
                 "base_tf": base_tf,
                 "base_ok": base_ok,
@@ -563,19 +567,23 @@ class MamriEngine:
         return torch.as_tensor(v, dtype=dtype).to(self.device, non_blocking=True)
 
     def _pipeline_args(self, volume: Volume, use_saved_baseplate: bool, apply_correction: bool) -> tuple:
-        """The pipeline's arguments for one scan and the engine's state now."""
+        """The pipeline's arguments for one scan and the engine's state now
+        (span `pose.upload`, counter `pose.upload_bytes`)."""
         saved = self.saved_baseplate if self.saved_baseplate is not None else np.eye(4, dtype=np.float32)
         f32 = torch.float32
-        return (
-            self._upload(volume.data),
-            self._upload(volume.spacing, f32),
-            self._upload(volume.origin, f32),
-            self._upload(saved, f32),
-            self._upload(bool(use_saved_baseplate)),
-            self._upload(self.saved_baseplate is not None),
-            self._upload(bool(apply_correction)),
-            self._upload(self.current_angles, f32),
-        )
+        with current_span("pose.upload"):
+            args = (
+                self._upload(volume.data),
+                self._upload(volume.spacing, f32),
+                self._upload(volume.origin, f32),
+                self._upload(saved, f32),
+                self._upload(bool(use_saved_baseplate)),
+                self._upload(self.saved_baseplate is not None),
+                self._upload(bool(apply_correction)),
+                self._upload(self.current_angles, f32),
+            )
+        current_count("pose.upload_bytes", sum(a.nbytes for a in args))
+        return args
 
     @staticmethod
     def _escalate_seg_params(
@@ -642,17 +650,23 @@ class MamriEngine:
         keep_segmentation: bool = True,
     ) -> PoseEstimate:
         """Scan -> pose (the reference's `process()`), escalating the
-        segmentation budgets until every certificate holds."""
-        args = self._pipeline_args(volume, use_saved_baseplate, apply_correction)
+        segmentation budgets until every certificate holds. Under an enabled
+        tracer the call is one request: the root span `estimate_pose` (the
+        upload included), `pose.upload`, per attempt `pose.segment`,
+        `pose.ik` and `pose.fetch` (and the body mask's `pose.fetch`), and
+        the counters `pose.upload_bytes` and `pose.attempts`."""
         with self.tracer.span("estimate_pose"):
+            args = self._pipeline_args(volume, use_saved_baseplate, apply_correction)
             params = self.seg_params
             while True:
+                current_count("pose.attempts")
                 dev_out = self._get_pipeline(volume.shape, params)(*args)
                 # ONE host sync per attempt: certificates and results come back
                 # together; the body mask only once certification settles, and
                 # only when the caller keeps the segmentation
                 mask = dev_out.pop("body_mask")
-                out = self._fetch(dev_out)
+                with current_span("pose.fetch"):
+                    out = self._fetch(dev_out)
                 certs = {k: bool(out[k]) for k in _CERTIFICATES}
                 converged, complete, blobs_ok = (
                     certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
@@ -684,8 +698,9 @@ class MamriEngine:
                 )
                 params = stronger
             if keep_segmentation:
-                out.update(self._fetch({"body_mask": mask}))
-        return self._finish_estimate(out, volume, store_state, keep_segmentation)
+                with current_span("pose.fetch"):
+                    out.update(self._fetch({"body_mask": mask}))
+            return self._finish_estimate(out, volume, store_state, keep_segmentation)
 
     def estimate_pose_async(
         self,

@@ -6,7 +6,9 @@ accepted on a cost decrease (mu shrinks) or rejected (mu grows). The JAX
 version vmaps one solve over guesses; here the guess axis is the leading
 batch dimension of every tensor, and the Jacobian comes from
 `torch.func.vmap(torch.func.jacfwd(...))`. `torch.linalg.solve_ex` does not
-check for singular systems (no host sync), like `jnp.linalg.solve`.
+check for singular systems (no host sync), like `jnp.linalg.solve`. Each
+Jacobian evaluation of the host loop (`num_iters + 1` a solve) is span
+`ik.lm.jacobian` of the current tracer's request, where there is one.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
+
+from mamri_tpu_torch.utils.trace import current_span
 
 
 class LMResult(NamedTuple):
@@ -57,7 +61,8 @@ def least_squares_lm(
     c = cost_of(x)
     accepted = torch.zeros((g_count,), dtype=torch.int32, device=x.device)
     for _ in range(num_iters):
-        jac, r = jac_and_res(x)  # (G, m, n), (G, m)
+        with current_span("ik.lm.jacobian"):
+            jac, r = jac_and_res(x)  # (G, m, n), (G, m)
         jt = jac.transpose(-1, -2)
         g = (jt @ r[..., None])[..., 0]
         h = jt @ jac
@@ -71,7 +76,8 @@ def least_squares_lm(
         c = torch.where(improve, c_new, c)
         mu = torch.clamp(torch.where(improve, mu * mu_dec, mu * mu_inc), 1e-12, 1e12)
         accepted = accepted + improve.to(torch.int32)
-    jac, r = jac_and_res(x)
+    with current_span("ik.lm.jacobian"):
+        jac, r = jac_and_res(x)
     g = (jac.transpose(-1, -2) @ r[..., None])[..., 0]
     return LMResult(x=x, cost=c, grad_norm=torch.linalg.norm(g, dim=-1), iterations=accepted)
 
