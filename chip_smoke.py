@@ -44,8 +44,13 @@
    how many synchronizing calls it reported and the file:line of each, and
    none may come from the engine or the pipeline's modules
    (`PIPELINE_FILES`: `api/engine.py`, `lshape.py`, `kabsch.py`,
-   `residuals.py`, `lm.py`, `segmentation.py`; `_fetch`'s one wait per
-   attempt is a CUDA event's, which the mode does not report).
+   `residuals.py`, `lm.py`, `fused_lm.py`, `segmentation.py`; `_fetch`'s
+   one wait per attempt is a CUDA event's, which the mode does not report).
+   Then the pose IK's LM kernel (`csrc/lm.cu`): one warm call under a
+   tracer launches it once an attempt and agrees with a `device="cpu"`
+   engine's pose, and one launch at the engine's defaults (G = 12, 24
+   iterations) is timed beside its plain twin and the launch floor
+   (`full_chain_lm=` and the last JSON line's `full_chain_lm`).
 4. Escalated paths: a speckle scene must escalate through the compact
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
@@ -695,7 +700,8 @@ def time_estimates(engine, vol, label, card):
 
 PIPELINE_FILES = ("mamri_tpu_torch/api/engine.py", "mamri_tpu_torch/registration/lshape.py",
                   "mamri_tpu_torch/registration/kabsch.py", "mamri_tpu_torch/ik/residuals.py",
-                  "mamri_tpu_torch/ik/lm.py", "mamri_tpu_torch/perception/segmentation.py")
+                  "mamri_tpu_torch/ik/lm.py", "mamri_tpu_torch/ik/fused_lm.py",
+                  "mamri_tpu_torch/perception/segmentation.py")
 
 
 def report_host_syncs(engine, vol):
@@ -712,6 +718,73 @@ def report_host_syncs(engine, vol):
     pipeline_syncs = [at for at in where if at.startswith(PIPELINE_FILES)]
     if pipeline_syncs:
         raise AssertionError(f"the pipeline synchronizes outside _fetch's wait: {pipeline_syncs}")
+
+
+def check_fused_lm(engine, vol, base, card, floor):
+    """The pose IK's LM kernel (`csrc/lm.cu`): a warm `estimate_pose` at
+    256^3 launches it once an attempt and agrees with a `device="cpu"`
+    engine (the plain twin) within tests/test_torch_engine.py's tolerances
+    (angles 1-3 1e-3 rad, TCP 0.05 mm, steps 1, RMSE 1e-3 mm); then one
+    launch at the engine's defaults (G = 12: current, zero, the 8
+    closed-form seeds and 2 restarts on the scene's markers; 24 iterations)
+    timed as every kernel is, beside its plain twin on the card and the
+    launch floor."""
+    import torch
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.core.robot import fk_all_links_host, load_robot_model
+    from mamri_tpu_torch.ik import fused_lm
+    from mamri_tpu_torch.ik.analytic import analytic_ik_seeds, joint6_frame_from_markers
+    from mamri_tpu_torch.ik.residuals import random_restart_guesses
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    kept = engine.tracer
+    engine.tracer = Tracer()
+    try:
+        engine.current_angles = np.zeros(6, np.float32)
+        fused_lm.reset_launch_counts()
+        res = engine.estimate_pose(vol)
+        attempts = engine.tracer.counters["pose.attempts"]
+    finally:
+        engine.tracer = kept
+    check_pose(engine, res, TRUE_ANGLES, "fused LM 256^3")
+    launches = fused_lm.LAUNCHES["full_chain_lm"]
+    if launches != attempts:
+        raise AssertionError(f"full_chain_lm launched {launches} times for {attempts} attempts")
+    cpu = MamriEngine(device="cpu").estimate_pose(vol)
+    model = engine.model
+
+    def tcp(r):
+        return fk_all_links_host(model, r.angles_rad, r.baseplate_tf)[-1][:3, 3]
+
+    gaps = {"angles_1_3_rad": float(np.abs(res.angles_rad[:3] - cpu.angles_rad[:3]).max()),
+            "tcp_mm": float(np.linalg.norm(tcp(res) - tcp(cpu))),
+            "steps": int(np.abs(res.steps.astype(np.int64) - cpu.steps.astype(np.int64)).max()),
+            "rmse_mm": abs(res.rmse_mm - cpu.rmse_mm)}
+    print(f"fused LM 256^3: launches {launches} for {attempts} attempts; card - cpu: "
+          f"{json.dumps(gaps)}")
+    if not (cpu.success and gaps["angles_1_3_rad"] <= 1e-3 and gaps["tcp_mm"] < 0.05 and gaps["steps"] <= 1
+            and gaps["rmse_mm"] < 1e-3):
+        raise AssertionError(f"fused LM: the card's pose and the CPU's differ: {gaps}")
+
+    dev = model.device
+    pts = torch.as_tensor(_markers(load_robot_model(device="cpu"), TRUE_ANGLES, torch.as_tensor(base)), device=dev)
+    pts = pts.reshape(len(MARKER_LINKS), 3, 3)
+    t6, t4 = pts[MARKER_LINKS.index("Joint6")].contiguous(), pts[MARKER_LINKS.index("Joint4")].contiguous()
+    base = torch.as_tensor(base, dtype=torch.float32, device=dev)
+    false, true = torch.zeros((), dtype=torch.bool, device=dev), torch.ones((), dtype=torch.bool, device=dev)
+    guesses = torch.cat([torch.zeros((2, 6), device=dev),
+                         analytic_ik_seeds(model, joint6_frame_from_markers(model, t6, false), base),
+                         random_restart_guesses(model, 2, 0)]).contiguous()
+    lower, upper = model.limits_rad.T.contiguous()
+    args = (model, guesses, lower, upper, base, t6, false, t4, true)
+    out = {
+        "g_count": int(guesses.shape[0]), "num_iters": 24,
+        "ms": med_ms(lambda: fused_lm.full_chain_lm(*args, num_iters=24), tuple),
+        "plain_ms": med_ms(lambda: fused_lm.full_chain_lm_plain(*args, num_iters=24), tuple),
+        "launch_floor_ms": floor["1"],
+    }
+    print(f"full_chain_lm={json.dumps(out)} ({card})")
+    return out
 
 
 def cold_warm(engine, vol, label, card):
@@ -2442,6 +2515,7 @@ def main() -> int:
     per_call = {"fused": dict(gpu_ops.LAUNCHES)}
     p50 = time_estimates(engine, vol256, "main 256^3", card)
     report_host_syncs(engine, vol256)
+    lm_timing = check_fused_lm(engine, vol256, base256, card, floor)
 
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()
@@ -2563,7 +2637,7 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(card)
-    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
+    print(json.dumps({"kernels": kernels, "full_chain_lm": lm_timing, "launch_floor_ms": floor}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: argument types (every entry takes the stream last, returns cudaError_t)
     "mamri_close_init": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _I],
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "mamri_root_candidates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I],
     "mamri_component_stats": [_P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P],
     "mamri_noop": [_I],
+    "mamri_full_chain_lm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F,
+                            _F, _P, _P, _P, _P],
 }
 
 # what the last build in this process took and printed (read by chip_smoke.py)

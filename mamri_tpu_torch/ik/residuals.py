@@ -5,7 +5,8 @@
 9 Joint6 marker errors (optionally with the 180-degree Z correction of the
 Joint6 local frame) and a Joint4 block weighted 0.05 when Joint4 was found,
 0 otherwise. `solve_full_chain_ik` polishes {current pose, zero pose}, the 8
-closed-form branches and optional random restarts with batched LM, then
+closed-form branches and optional random restarts with one batched LM
+(`ik/fused_lm.full_chain_lm`: one kernel launch on a card), then
 scores by (cost, Joint2 evidence, distance to the current pose) and picks
 the Joint6 winding nearest the current pose. `trajectory_pose_residual`
 is the needle tip position + direction residual of the trajectory goal IK.
@@ -22,9 +23,8 @@ from torch.func import vmap
 from mamri_tpu_torch.core import transforms
 from mamri_tpu_torch.core.robot import RobotModel, fk_all_links
 from mamri_tpu_torch.ik.analytic import analytic_ik_seeds, chain_is_analytic, joint6_frame_from_markers
-from mamri_tpu_torch.ik.lm import least_squares_lm
+from mamri_tpu_torch.ik.fused_lm import JOINT4_WEIGHT, full_chain_lm
 
-JOINT4_WEIGHT = 0.05
 ORIENTATION_WEIGHT = 50.0
 
 
@@ -147,8 +147,7 @@ def solve_full_chain_ik(
     apply_correction = false if apply_correction is None else apply_correction
     if current_angles is None:
         current_angles = torch.zeros(nj, dtype=torch.float32, device=dev)
-    lower = model.limits_rad[:, 0]
-    upper = model.limits_rad[:, 1]
+    lower, upper = model.limits_rad.T.contiguous()
     guesses = [torch.stack([current_angles, torch.zeros_like(current_angles)])]
     if use_analytic_seeds and chain_is_analytic(model):
         frame = joint6_frame_from_markers(model, joint6_targets, apply_correction)
@@ -159,12 +158,10 @@ def solve_full_chain_ik(
         guesses.append(random_restart_guesses(model, num_random_restarts, restart_seed))
     guesses = torch.cat(guesses)
 
-    def res(x):
-        return full_chain_residual(
-            model, x, base_tf, joint6_targets, apply_correction, joint4_targets, joint4_found
-        )
-
-    results = least_squares_lm(res, guesses, lower, upper, num_iters=num_iters)
+    results = full_chain_lm(
+        model, guesses, lower, upper, base_tf, joint6_targets, apply_correction, joint4_targets, joint4_found,
+        num_iters=num_iters,
+    )
 
     score = results.cost + 1e-4 * ((results.x - current_angles) ** 2).sum(1)
     if joint2_targets is not None:

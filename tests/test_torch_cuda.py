@@ -540,7 +540,7 @@ def test_engine_fetch_and_host_syncs(cuda):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
     pipeline = ("api/engine.py", "registration/lshape.py", "registration/kabsch.py", "ik/residuals.py", "ik/lm.py",
-                "perception/segmentation.py")
+                "ik/fused_lm.py", "perception/segmentation.py")
     assert not [s for s in syncs if s.rsplit(":", 1)[0].replace("\\", "/").endswith(pipeline)], syncs
 
 
@@ -634,3 +634,107 @@ def test_engine_fk_methods_cuda_equal_cpu(cuda):
     np.testing.assert_allclose(gpu.needle_tcp(path[3]), cpu.needle_tcp(path[3]), atol=1e-4)
     for a, b in zip(gpu._path_fk(), cpu._path_fk()):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+# ------------------------------------------------------------ the full-chain LM (csrc/lm.cu)
+def _lm_solves(model, kw, num_iters):
+    """(the kernel's LMResult, the plain twin's on the card); the kernel
+    launched once for the one solve."""
+    from mamri_tpu_torch.ik import fused_lm
+
+    before = fused_lm.LAUNCHES["full_chain_lm"]
+    got = fused_lm.full_chain_lm(model, num_iters=num_iters, **kw)
+    assert fused_lm.LAUNCHES["full_chain_lm"] == before + 1
+    want = fused_lm.full_chain_lm_plain(model, num_iters=num_iters, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _lm_residual(model, kw):
+    from mamri_tpu_torch.ik import fused_lm
+
+    return lambda x: fused_lm.full_chain_jacobian(model, x, kw["base_tf"], kw["joint6_targets"],
+                                                  kw["apply_correction"], kw.get("joint4_targets"),
+                                                  kw.get("joint4_found"), jacobian=False)[0]
+
+
+LM_FLAGS = [(False, False), (False, True), (True, False), (True, True)]
+
+
+@pytest.mark.parametrize("apply_correction,joint4_found", LM_FLAGS)
+@pytest.mark.parametrize("num_iters", [24, 80])
+@pytest.mark.parametrize("g_count", [12, 40])
+def test_full_chain_lm_equals_twin(cuda, g_count, num_iters, apply_correction, joint4_found):
+    """Guess by guess in a pose's basin, and by the answer from the engine's
+    kind of guesses (restarts included); tests/lm_cases.py says why."""
+    from lm_cases import assert_same_answer, assert_same_in_basin, lm_scene
+
+    model, kw = lm_scene(g_count, g_count, apply_correction, joint4_found, cuda, basin=True)
+    got, want = _lm_solves(model, kw, num_iters)
+    assert_same_in_basin(got, want, _lm_residual(model, kw))
+    model, kw = lm_scene(g_count + 1, g_count, apply_correction, joint4_found, cuda)
+    got, want = _lm_solves(model, kw, num_iters)
+    assert_same_answer(got, want, _lm_residual(model, kw))
+
+
+@pytest.mark.parametrize("apply_correction,joint4_found", LM_FLAGS + [(False, None), (True, None)])
+@pytest.mark.parametrize("g_count", [12, 13, 40])
+def test_full_chain_lm_first_steps_equal_twin(cuda, g_count, apply_correction, joint4_found):
+    """Before any guess converges every accept or reject is decisive: the
+    kernel accepts the twin's steps from every guess (13: a block's last
+    warps idle)."""
+    from lm_cases import lm_scene
+
+    model, kw = lm_scene(g_count, g_count, apply_correction, joint4_found, cuda)
+    for num_iters in (0, 1, 3):
+        got, want = _lm_solves(model, kw, num_iters)
+        assert torch.equal(got.iterations, want.iterations)
+        if num_iters == 0:  # the clamped guesses and their cost
+            assert torch.equal(got.x, want.x)
+            torch.testing.assert_close(got.cost, want.cost, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("jac_eps", [1e-10, 0.0])
+@pytest.mark.parametrize("case", ["nan_guess", "singular"])
+def test_full_chain_lm_rejects_nan_and_singular(cuda, case, jac_eps):
+    """As on the CPU (tests/test_torch_fused_lm.py): a NaN guess and normal
+    equations with no rank are rejected every iteration."""
+    from lm_cases import lm_scene
+    from mamri_tpu_torch.ik import fused_lm
+
+    model, kw = lm_scene(3, 6, False, True, cuda)
+    if case == "nan_guess":
+        kw["guesses"][2, 4] = float("nan")
+    else:
+        base = torch.eye(4, device=cuda)
+        base[:3, :3] = 0.0
+        base[:3, 3] = kw["base_tf"][:3, 3]
+        kw["base_tf"] = base
+    got = fused_lm.full_chain_lm(model, num_iters=6, jac_eps=jac_eps, **kw)
+    want = fused_lm.full_chain_lm_plain(model, num_iters=6, jac_eps=jac_eps, **kw)
+    stuck = [2] if case == "nan_guess" else list(range(6))
+    clamped = torch.clamp(kw["guesses"], kw["lower"], kw["upper"])
+    for res in (got, want):
+        assert res.iterations[stuck].tolist() == [0] * len(stuck)
+        torch.testing.assert_close(res.x[stuck], clamped[stuck], rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(torch.isnan(got.cost), torch.isnan(want.cost))
+
+
+def test_full_chain_lm_launches_once_a_solve(cuda, monkeypatch):
+    """Each `solve_full_chain_ik` on the card is one kernel launch and never
+    the plain twin."""
+    from lm_cases import lm_scene
+    from mamri_tpu_torch.ik import fused_lm
+    from mamri_tpu_torch.ik.residuals import solve_full_chain_ik
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the LM's plain twin")
+
+    monkeypatch.setattr(fused_lm, "full_chain_lm_plain", refuse)
+    model, kw = lm_scene(5, 12, False, True, cuda)
+    fused_lm.reset_launch_counts()
+    for _ in range(3):
+        solve_full_chain_ik(model, kw["joint6_targets"], kw["base_tf"], joint4_targets=kw["joint4_targets"],
+                            joint4_found=kw["joint4_found"], num_iters=24, num_random_restarts=2)
+    torch.cuda.synchronize()
+    assert fused_lm.LAUNCHES == {"full_chain_lm": 3}

@@ -350,13 +350,13 @@ def _reference_span_names():
 
 
 # the port's own spans inside the scan -> pose path (utils/trace.py, tests/test_torch_trace.py)
-POSE_PATH_SPANS = {"pose.upload", "pose.segment", "pose.ik", "ik.lm.jacobian", "pose.fetch"}
+POSE_PATH_SPANS = {"pose.upload", "pose.segment", "pose.ik", "ik.lm.solve", "pose.fetch"}
 
 
 def test_engine_records_the_reference_spans(replanned):
     """Every span name of mamri_tpu's engine is recorded by the port's engine
     across the calls that record them, and the names beyond the reference's
-    are exactly the port's pose-path spans."""
+    are exactly the port's pose-path spans and the trajectory LM's."""
     eng, _, _, ep = replanned
     eng.plan_trajectory(BODY_CENTER, ep.point_ras)
     eng.plan_trajectory_sweep(BODY_CENTER, ep.point_ras, [5.0])
@@ -367,7 +367,8 @@ def test_engine_records_the_reference_spans(replanned):
         "plan_heuristic_path", "validate_plan_exact",
     }
     assert reference <= set(eng.tracer.spans)
-    assert set(eng.tracer.spans) - reference == POSE_PATH_SPANS
+    # and the generic LM's Jacobian, which the trajectory goal IK of planning runs
+    assert set(eng.tracer.spans) - reference == POSE_PATH_SPANS | {"ik.lm.jacobian"}
     assert eng.tracer.stats("estimate_pose")["count"] == 3
     assert MamriEngine(device="cpu").tracer.enabled is False
 

@@ -4,9 +4,10 @@ scan -> pose path.
 The scene is the demo scene at 3 mm (tests/test_torch_streaming.py's arm
 and body) on a CPU engine with `ik_restarts=0`. One `estimate_pose` under an
 enabled tracer is one request: the root `estimate_pose`, its children
-`pose.upload`, `pose.segment`, `pose.ik` and `pose.fetch`, `ik.lm.jacobian`
-`ik_iters + 1` times under `pose.ik`, and the counters `pose.upload_bytes`
-and `pose.attempts`. A scan that escalates repeats segmentation and IK per
+`pose.upload`, `pose.segment`, `pose.ik` and `pose.fetch`, one `ik.lm.solve`
+under `pose.ik` (the full-chain LM: one kernel launch on a card, its plain
+twin here), and the counters `pose.upload_bytes`, `pose.attempts` and
+`ik.lm.fused_solves`. A scan that escalates repeats segmentation and IK per
 attempt; a disabled tracer, or a solve outside an engine, records nothing
 and changes no answer; under `torch.profiler` each span is an event of its
 name; the buffer keeps the newest records and counts the rest.
@@ -74,14 +75,15 @@ def test_one_pose_is_one_request(traced):
         kids = _children(recs, root)
         assert Counter(r.name for r in kids) == POSE_CHILDREN
         (ik,) = [r for r in kids if r.name == "pose.ik"]
-        jac = [r for r in recs if r.name == "ik.lm.jacobian"]
-        assert len(jac) == eng.ik_iters + 1 and all(r.parent == ik.index for r in jac)
-        assert len(recs) == 1 + sum(POSE_CHILDREN.values()) + len(jac)
+        solve = [r for r in recs if r.name == "ik.lm.solve"]
+        assert len(solve) == 1 and solve[0].parent == ik.index
+        assert not [r for r in recs if r.name == "ik.lm.jacobian"]  # the generic LM is off the pose path
+        assert len(recs) == 1 + sum(POSE_CHILDREN.values()) + len(solve)
         spans = {r.index: r for r in recs}
         for r in recs[1:]:
             p = spans[r.parent]
             assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns, (r.name, p.name)
-        assert root.counters == {"pose.attempts": 1, "pose.upload_bytes": _upload_bytes(vol)}
+        assert root.counters == {"pose.attempts": 1, "pose.upload_bytes": _upload_bytes(vol), "ik.lm.fused_solves": 1}
         assert all(r.counters is None for r in recs[1:])
     assert len(ids) == 2
     assert eng.tracer.counters["pose.attempts"] == 2 and eng.tracer.dropped == 0
@@ -112,7 +114,7 @@ def test_an_escalating_scan_repeats_segmentation_and_ik(traced, restore_tracer):
     names = Counter(r.name for r in _children(recs, root))
     assert names == Counter({"pose.upload": 1, "pose.segment": attempts, "pose.ik": attempts,
                              "pose.fetch": attempts})
-    assert sum(r.name == "ik.lm.jacobian" for r in recs) == attempts * (eng.ik_iters + 1)
+    assert sum(r.name == "ik.lm.solve" for r in recs) == attempts == root.counters["ik.lm.fused_solves"]
 
 
 def test_off_records_nothing_and_changes_nothing(traced, restore_tracer):
@@ -135,7 +137,7 @@ def test_off_records_nothing_and_changes_nothing(traced, restore_tracer):
     on = trace.Tracer()
     with on.span("outer"):
         solve()
-    assert [r.name for r in on.records].count("ik.lm.jacobian") == 3
+    assert [r.name for r in on.records].count("ik.lm.solve") == 1 and on.counters["ik.lm.fused_solves"] == 1
 
     # the first traced call started from the zero pose too: the same answer bit for bit
     first = ests[0]
@@ -146,7 +148,7 @@ def test_off_records_nothing_and_changes_nothing(traced, restore_tracer):
 
 def test_spans_are_profiler_events(traced, restore_tracer, monkeypatch):
     """Under a profile each span is a `record_function` event of its name,
-    and the Jacobian's ATen ops lie inside `ik.lm.jacobian`; without one no
+    and the LM's ATen ops lie inside `ik.lm.solve`; without one no
     `record_function` is entered."""
     eng, vol, _ = traced
     entered = []
@@ -173,12 +175,12 @@ def test_spans_are_profiler_events(traced, restore_tracer, monkeypatch):
     def intervals(name):
         return [(e.start_ns(), e.end_ns()) for e in events if e.name() == name and e.is_user_annotation()]
 
-    jac, ik = intervals("ik.lm.jacobian"), intervals("pose.ik")
-    assert len(jac) == eng.ik_iters + 1
-    assert all(any(a <= s and e <= b for a, b in ik) for s, e in jac)
+    solve, ik = intervals("ik.lm.solve"), intervals("pose.ik")
+    assert len(solve) == 1
+    assert all(any(a <= s and e <= b for a, b in ik) for s, e in solve)
     aten = [(e.start_ns(), e.end_ns()) for e in events if e.name().startswith("aten::")]
-    for s, e in jac:
-        assert any(s <= a and b <= e for a, b in aten), "a Jacobian span without its ATen ops"
+    for s, e in solve:
+        assert any(s <= a and b <= e for a, b in aten), "an LM span without its ATen ops"
 
 
 def test_the_buffer_keeps_the_newest(monkeypatch):
