@@ -50,7 +50,11 @@
    tracer launches it once an attempt and agrees with a `device="cpu"`
    engine's pose, and one launch at the engine's defaults (G = 12, 24
    iterations) is timed beside its plain twin and the launch floor
-   (`full_chain_lm=` and the last JSON line's `full_chain_lm`).
+   (`full_chain_lm=` and the last JSON line's `full_chain_lm`). Then the
+   Kabsch kernel (`csrc/kabsch.cu`): one warm call launches it twice an
+   attempt (baseplate, Joint6 frame), the kernel equals its twin on the
+   scene's fits, and the baseplate's fit is timed beside its twin and the
+   launch floor (`kabsch=` and the JSON line's `kabsch`).
 4. Escalated paths: a speckle scene must escalate through the compact
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
@@ -784,6 +788,72 @@ def check_fused_lm(engine, vol, base, card, floor):
         "launch_floor_ms": floor["1"],
     }
     print(f"full_chain_lm={json.dumps(out)} ({card})")
+    return out
+
+
+def check_kabsch(engine, vol, base, card, floor):
+    """The Kabsch kernel (`csrc/kabsch.cu`): a warm `estimate_pose` at 256^3
+    launches it twice an attempt (the baseplate, the Joint6 frame), each
+    counted under a tracer (`registration.kabsch_fused`); the kernel equals
+    its plain twin on the card (rotation entries within 2e-6, translations
+    within 1e-4 mm) on the scene's baseplate (Y-flattened as the engine
+    does) and Joint6 fits and on the four marker links' fits as one batch;
+    then the baseplate's fit (one problem, 3 points) timed as every kernel
+    is, beside its twin on the card and the launch floor."""
+    import torch
+    from mamri_tpu_torch.core.robot import load_robot_model
+    from mamri_tpu_torch.registration import kabsch
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    kept = engine.tracer
+    engine.tracer = Tracer()
+    try:
+        engine.current_angles = np.zeros(6, np.float32)
+        kabsch.reset_launch_counts()
+        res = engine.estimate_pose(vol)
+        attempts = engine.tracer.counters["pose.attempts"]
+        counted = engine.tracer.counters["registration.kabsch_fused"]
+    finally:
+        engine.tracer = kept
+    check_pose(engine, res, TRUE_ANGLES, "kabsch 256^3")
+    launches = kabsch.LAUNCHES["kabsch"]
+    if not launches == counted == 2 * attempts:
+        raise AssertionError(f"kabsch launched {launches} times, counted {counted}, for {attempts} attempts")
+
+    model = engine.model
+    dev = model.device
+    pts = torch.as_tensor(_markers(load_robot_model(device="cpu"), TRUE_ANGLES, torch.as_tensor(base)), device=dev)
+    pts = pts.reshape(len(MARKER_LINKS), 3, 3).contiguous()
+    bp = pts[MARKER_LINKS.index("Baseplate")]
+    bp = torch.stack([bp[:, 0], bp[:, 1].mean().expand(3), bp[:, 2]], dim=1)
+    local = torch.stack([model.marker_local[model.link_index(ln)] for ln in MARKER_LINKS]).contiguous()
+    fits = {
+        "baseplate": (local[0].contiguous(), bp),
+        "joint6": (local[3].contiguous(), pts[3].contiguous()),
+        "markers4": (local, pts),
+    }
+    gaps = {}
+    for name, (src, tgt) in fits.items():
+        got = kabsch.kabsch_rigid_transform(src, tgt)
+        want = kabsch.kabsch_rigid_transform_plain(src, tgt)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        gaps[name] = {"rot": float(d[..., :3, :3].max()), "mm": float(d[..., :3, 3].max()),
+                      "bottom_row_exact": bool(torch.equal(got[..., 3, :], want[..., 3, :]))}
+    print(f"kabsch 256^3: launches {launches}, counted {counted}, for {attempts} attempts; kernel - twin: "
+          f"{json.dumps(gaps)}")
+    if not all(g["rot"] <= 2e-6 and g["mm"] <= 1e-4 and g["bottom_row_exact"] for g in gaps.values()):
+        raise AssertionError(f"kabsch: the kernel and its twin differ: {gaps}")
+
+    src, tgt = fits["baseplate"]
+    out = {
+        "problems": 1, "points": 3,
+        "ms": med_ms(lambda: kabsch.kabsch_rigid_transform(src, tgt), tuple),
+        "plain_ms": med_ms(lambda: kabsch.kabsch_rigid_transform_plain(src, tgt), tuple),
+        "launch_floor_ms": floor["1"],
+        "gaps": gaps,
+    }
+    print(f"kabsch={json.dumps(out)} ({card})")
     return out
 
 
@@ -2516,6 +2586,7 @@ def main() -> int:
     p50 = time_estimates(engine, vol256, "main 256^3", card)
     report_host_syncs(engine, vol256)
     lm_timing = check_fused_lm(engine, vol256, base256, card, floor)
+    kabsch_timing = check_kabsch(engine, vol256, base256, card, floor)
 
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()
@@ -2637,7 +2708,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes any of these functions
         })
     print(card)
-    print(json.dumps({"kernels": kernels, "full_chain_lm": lm_timing, "launch_floor_ms": floor}))
+    print(json.dumps({"kernels": kernels, "full_chain_lm": lm_timing, "kabsch": kabsch_timing,
+                      "launch_floor_ms": floor}))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "mamri_noop": [_I],
     "mamri_full_chain_lm": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _F, _F, _F,
                             _F, _P, _P, _P, _P],
+    "mamri_kabsch": [_P, _P, ctypes.c_longlong, _I, _P],
 }
 
 # what the last build in this process took and printed (read by chip_smoke.py)

@@ -7,29 +7,47 @@ covariance rank-deficient, and the symmetric eigenproblem stays
 well-conditioned and never yields a reflection. q and -q give the same
 rotation, so the eigenvector's sign does not matter.
 
-On a card the eigenvector comes from a fixed number of cyclic Jacobi
-sweeps in plain tensor ops, not `torch.linalg.eigh`: eigh checks its
-solver's status on the host, which waits for the card, and the pose
-pipeline must queue its work without waiting
-(`MamriEngine.estimate_pose_async`). On the CPU nothing waits, and eigh is
-LAPACK's, as the reference's is on the CPU: an unconverged IK (10
-iterations) turns the last-bit differences between two correct
-eigenvectors into ~1e-4 rad, so the CPU keeps the reference's solver.
+On a card the whole fit is one launch of `csrc/kabsch.cu` (`mamri_kabsch`,
+one thread per problem), with the eigenvector from a fixed number of cyclic
+Jacobi sweeps, not eigh: `torch.linalg.eigh` checks its solver's status on
+the host, which waits for the card, and the pose pipeline must queue its
+work without waiting (`MamriEngine.estimate_pose_async`). Its plain twin,
+`kabsch_rigid_transform_plain`, is the same fit in tensor ops through
+`_top_eigenvector`. There is no fallback: a CUDA tensor reaches the kernel
+or an error. `LAUNCHES` counts kernel launches; under a current tracer each
+launch adds one to the request's counter `registration.kabsch_fused`.
+
+On the CPU nothing waits, and eigh is LAPACK's, as the reference's is on
+the CPU: an unconverged IK (10 iterations) turns the last-bit differences
+between two correct eigenvectors into ~1e-4 rad, so the CPU keeps the
+reference's solver.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
+import numpy as np
 import torch
 
 from mamri_tpu_torch.core.transforms import homogeneous
+from mamri_tpu_torch.perception.gpu_ops import _check, _on_cuda
+from mamri_tpu_torch.utils.trace import current_count
 
 # the six (p, q) planes of a 4x4 in three rounds of two disjoint rotations;
 # each round is one product J^T A J
 _JACOBI_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
 # quadratic convergence: 4x4 f32 matrices reach rounding in 4-5 sweeps
 _JACOBI_SWEEPS = 6
+
+LAUNCHES = {"kabsch": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES["kabsch"] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,9 +90,10 @@ def _top_eigenvector(n):
     return torch.gather(v, -1, top[..., None, None].expand(n.shape[:-1] + (1,)))[..., 0]
 
 
-def kabsch_rigid_transform(source, target):
+def _fit(source, target, top_eigenvector):
     """(..., 4, 4) rigid T with T @ source ~= target for (..., N, 3) points
-    (equal weights, as the estimate path uses it)."""
+    (equal weights, as the estimate path uses it), in tensor ops, with the
+    profile matrix's top eigenvector from `top_eigenvector`."""
     w = torch.ones(source.shape[:-1], dtype=source.dtype, device=source.device)
     wn = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
 
@@ -96,7 +115,7 @@ def kabsch_rigid_transform(source, target):
         ],
         dim=-2,
     )
-    q = torch.linalg.eigh(n)[1][..., -1] if n.device.type == "cpu" else _top_eigenvector(n)
+    q = top_eigenvector(n)
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     r = torch.stack(
         [
@@ -108,3 +127,64 @@ def kabsch_rigid_transform(source, target):
     )
     t = t_mean[..., 0, :] - torch.einsum("...ij,...j->...i", r, s_mean[..., 0, :])
     return homogeneous(torch.cat([r, t[..., None]], dim=-1))
+
+
+def _eigh_top(n):
+    return torch.linalg.eigh(n)[1][..., -1]
+
+
+def kabsch_rigid_transform_plain(source, target):
+    """Plain twin of the kernel: the fit in tensor ops with the eigenvector
+    from `_top_eigenvector`'s Jacobi sweeps (what a card ran before the
+    kernel, on any device)."""
+    return _fit(source, target, _top_eigenvector)
+
+
+def _check_inputs(source, target) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors; a
+    shape that is not (..., N, 3) on both sides with leading dimensions that
+    broadcast, a mix of devices, or on a card anything but contiguous
+    float32, is an error."""
+    if source.dim() < 2 or target.dim() < 2 or source.shape[-1] != 3 or target.shape[-2:] != source.shape[-2:]:
+        raise ValueError(f"kabsch: expected (..., N, 3) source and target, got {tuple(source.shape)} and "
+                         f"{tuple(target.shape)}")
+    _leading_shape(source, target)  # raises ValueError where they do not broadcast
+    on_cuda = _on_cuda(source, target)
+    if on_cuda:
+        _check(source, "kabsch source", torch.float32)
+        _check(target, "kabsch target", torch.float32)
+    return on_cuda
+
+
+def _leading_shape(source, target):
+    # numpy's, not torch.broadcast_shapes: that imports torch.fx's symbolic
+    # shapes (and sympy) on its first call, seconds of a process's first pose
+    return np.broadcast_shapes(tuple(source.shape[:-2]), tuple(target.shape[:-2]))
+
+
+def _launch(source, target):
+    from mamri_tpu_torch import _build
+
+    lead = _leading_shape(source, target)
+    n = source.shape[-2]
+    source, target = (t if t.shape[:-2] == lead else t.expand(lead + (n, 3)).contiguous() for t in (source, target))
+    out = torch.empty(lead + (4, 4), dtype=torch.float32, device=source.device)
+    lib = _build.library()
+    err = lib.mamri_kabsch(source.data_ptr(), target.data_ptr(), out.numel() // 16, n, out.data_ptr(),
+                           torch.cuda.current_stream(source.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kabsch: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
+    with _LAUNCHES_LOCK:
+        LAUNCHES["kabsch"] += 1
+    current_count("registration.kabsch_fused")
+    return out
+
+
+def kabsch_rigid_transform(source, target):
+    """(..., 4, 4) rigid T with T @ source ~= target for (..., N, 3) points
+    (equal weights, as the estimate path uses it; leading dimensions
+    broadcast): one kernel launch on a card (contiguous float32), the fit in
+    tensor ops with LAPACK's eigh on the CPU."""
+    if _check_inputs(source, target):
+        return _launch(source, target)
+    return _fit(source, target, _eigh_top)

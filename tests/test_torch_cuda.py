@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from kabsch_cases import KABSCH_CASES
 from mamri_tpu_torch.perception import gpu_ops as G
 from mamri_tpu_torch.perception import segmentation as S
 from mamri_tpu_torch.perception.volume import synthetic_volume
@@ -738,3 +739,68 @@ def test_full_chain_lm_launches_once_a_solve(cuda, monkeypatch):
                             joint4_found=kw["joint4_found"], num_iters=24, num_random_restarts=2)
     torch.cuda.synchronize()
     assert fused_lm.LAUNCHES == {"full_chain_lm": 3}
+
+
+# ------------------------------------------------------------ the Kabsch fit (csrc/kabsch.cu)
+@pytest.mark.parametrize("case", KABSCH_CASES)
+def test_kabsch_equals_twin(cuda, case):
+    """One launch a fit, equal to the twin's tensor-op fit on the card
+    (rotation entries within 2e-6, translations within 1e-4 mm); zero
+    points give the identity and a NaN coordinate NaN, as the twin does."""
+    from kabsch_cases import assert_same_fit, kabsch_case
+    from mamri_tpu_torch.registration import kabsch
+
+    src, tgt = (t.to(cuda) for t in kabsch_case(case))
+    before = kabsch.LAUNCHES["kabsch"]
+    got = kabsch.kabsch_rigid_transform(src, tgt)
+    assert kabsch.LAUNCHES["kabsch"] == before + 1
+    want = kabsch.kabsch_rigid_transform_plain(src, tgt)
+    torch.cuda.synchronize()
+    assert_same_fit(got, want, 2e-6, 1e-4)
+    if case == "zero":
+        assert torch.equal(got.cpu(), torch.eye(4))
+    if case == "nan":
+        assert torch.isnan(got[:3].cpu()).all()
+
+
+@pytest.mark.parametrize("bad", ["float64", "mixed_devices", "not_contiguous", "last_dim"])
+def test_kabsch_rejects(cuda, bad):
+    from kabsch_cases import kabsch_case
+    from mamri_tpu_torch.registration import kabsch
+
+    src, tgt = (t.to(cuda) for t in kabsch_case("batch5"))
+    src, tgt = {
+        "float64": (src.double(), tgt.double()),
+        "mixed_devices": (src.cpu(), tgt),
+        "not_contiguous": (src, torch.cat([tgt, tgt], -1)[..., ::2]),
+        "last_dim": (torch.cat([src, src[..., :1]], -1), torch.cat([tgt, tgt[..., :1]], -1)),
+    }[bad]
+    before = kabsch.LAUNCHES["kabsch"]
+    with pytest.raises((ValueError, TypeError)):
+        kabsch.kabsch_rigid_transform(src, tgt)
+    assert kabsch.LAUNCHES["kabsch"] == before
+
+
+def test_kabsch_launches_twice_a_pose(cuda, monkeypatch):
+    """A warm `estimate_pose` fits the baseplate and the Joint6 frame by one
+    launch each, counted under the engine's tracer, and never runs the
+    twin's Jacobi sweeps."""
+    from mamri_tpu_torch.api.demo import bench_scenes, render_bench_scene
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.core.robot import load_robot_model
+    from mamri_tpu_torch.registration import kabsch
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the Kabsch twin's Jacobi sweeps")
+
+    scenes, spacing, origin, body_center = bench_scenes(load_robot_model(device="cpu"), 192)
+    vol = render_bench_scene(scenes[0][2], (192,) * 3, spacing, origin, body_center)
+    eng = MamriEngine(device=cuda, tracer=Tracer())
+    assert eng.estimate_pose(vol).success
+    monkeypatch.setattr(kabsch, "_top_eigenvector", refuse)
+    eng.tracer.reset()
+    kabsch.reset_launch_counts()
+    assert eng.estimate_pose(vol).success
+    assert eng.tracer.counters["pose.attempts"] == 1
+    assert kabsch.LAUNCHES == {"kabsch": 2} and eng.tracer.counters["registration.kabsch_fused"] == 2

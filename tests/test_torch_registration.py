@@ -22,19 +22,10 @@ from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform as t_kabs
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets as t_match
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets_global as t_global
 from mamri_tpu_torch.registration.lshape import order_l_shape as t_order
+from kabsch_cases import random_rotation as _random_rotation
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
 ARMS = [(40.0, 20.0), (70.0, 25.0), (70.0, 20.0), (45.0, 20.0)]  # the MAMRI signatures
-
-
-def _random_rotation(rng):
-    q = rng.normal(size=4)
-    w, x, y, z = q / np.linalg.norm(q)
-    return np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-    ])
 
 
 def test_kabsch_matches_jax_batched():
