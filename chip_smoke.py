@@ -673,10 +673,12 @@ DEFAULT_PATH_KERNELS = ("close_init", "reset_distances", "run_min", "check", "z_
 NONFUSED_PATH_KERNELS = ("reset_distances", "run_min", "check", "component_stats_xyz")
 
 
-def read_path_counts(gpu_ops, required, label):
+def read_path_counts(required, label):
     """The launch counts of the path just driven; each required kernel must
     have launched in it."""
-    return read_tally(dict(gpu_ops.LAUNCHES), required, label)
+    from mamri_tpu_torch import _build
+
+    return read_tally(dict(_build.LAUNCHES), required, label)
 
 
 def read_tally(tally, required, label):
@@ -734,6 +736,7 @@ def check_fused_lm(engine, vol, base, card, floor):
     timed as every kernel is, beside its plain twin on the card and the
     launch floor."""
     import torch
+    from mamri_tpu_torch import _build
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.core.robot import fk_all_links_host, load_robot_model
     from mamri_tpu_torch.ik import fused_lm
@@ -745,13 +748,13 @@ def check_fused_lm(engine, vol, base, card, floor):
     engine.tracer = Tracer()
     try:
         engine.current_angles = np.zeros(6, np.float32)
-        fused_lm.reset_launch_counts()
+        before = _build.LAUNCHES["full_chain_lm"]
         res = engine.estimate_pose(vol)
         attempts = engine.tracer.counters["pose.attempts"]
     finally:
         engine.tracer = kept
     check_pose(engine, res, TRUE_ANGLES, "fused LM 256^3")
-    launches = fused_lm.LAUNCHES["full_chain_lm"]
+    launches = _build.LAUNCHES["full_chain_lm"] - before
     if launches != attempts:
         raise AssertionError(f"full_chain_lm launched {launches} times for {attempts} attempts")
     cpu = MamriEngine(device="cpu").estimate_pose(vol)
@@ -801,6 +804,7 @@ def check_kabsch(engine, vol, base, card, floor):
     then the baseplate's fit (one problem, 3 points) timed as every kernel
     is, beside its twin on the card and the launch floor."""
     import torch
+    from mamri_tpu_torch import _build
     from mamri_tpu_torch.core.robot import load_robot_model
     from mamri_tpu_torch.registration import kabsch
     from mamri_tpu_torch.utils.trace import Tracer
@@ -809,14 +813,14 @@ def check_kabsch(engine, vol, base, card, floor):
     engine.tracer = Tracer()
     try:
         engine.current_angles = np.zeros(6, np.float32)
-        kabsch.reset_launch_counts()
+        before = _build.LAUNCHES["kabsch"]
         res = engine.estimate_pose(vol)
         attempts = engine.tracer.counters["pose.attempts"]
         counted = engine.tracer.counters["registration.kabsch_fused"]
     finally:
         engine.tracer = kept
     check_pose(engine, res, TRUE_ANGLES, "kabsch 256^3")
-    launches = kabsch.LAUNCHES["kabsch"]
+    launches = _build.LAUNCHES["kabsch"] - before
     if not launches == counted == 2 * attempts:
         raise AssertionError(f"kabsch launched {launches} times, counted {counted}, for {attempts} attempts")
 
@@ -897,13 +901,12 @@ def rows_equal_singles(out, datas, spacing, origin, label):
     fresh engine on the card (no saved baseplate, zero current angles).
     Returns the kernel launches of those single calls, summed."""
     from mamri_tpu_torch.api.engine import MamriEngine
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.volume import Volume
 
     singles = {}
     for row, data in enumerate(datas):
         eng = MamriEngine(device="cuda")
-        with_counts(gpu_ops, singles, eng.estimate_pose, Volume(data, spacing, origin))
+        with_counts(singles, eng.estimate_pose, Volume(data, spacing, origin))
         for k, v in out.items():
             if not np.array_equal(v[row], eng.last_segmentation[k]):
                 raise AssertionError(f"{label} row {row}: {k} = {v[row]}, estimate_pose gave {eng.last_segmentation[k]}")
@@ -911,11 +914,13 @@ def rows_equal_singles(out, datas, spacing, origin, label):
     return singles
 
 
-def with_counts(gpu_ops, tally, fn, *args, **kw):
+def with_counts(tally, fn, *args, **kw):
     """fn(*args, **kw), adding the kernel launches it made to `tally`."""
-    before = dict(gpu_ops.LAUNCHES)
+    from mamri_tpu_torch import _build
+
+    before = dict(_build.LAUNCHES)
     result = fn(*args, **kw)
-    for k, v in gpu_ops.LAUNCHES.items():
+    for k, v in _build.LAUNCHES.items():
         tally[k] = tally.get(k, 0) + v - before[k]
     return result
 
@@ -963,7 +968,6 @@ def phase_batch_async(model, card, paths):
     volume, and three frames through the async pair."""
     import torch
     from mamri_tpu_torch.api.engine import MamriEngine
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.volume import Volume
 
     scenes = bench_scenes(model, (256, 256, 256))
@@ -972,9 +976,9 @@ def phase_batch_async(model, card, paths):
     batch = np.stack(datas)
     engine = MamriEngine(device="cuda")
     tally = {}
-    with_counts(gpu_ops, tally, engine.estimate_pose_batch, batch, spacing, origin)  # warm-up
+    with_counts(tally, engine.estimate_pose_batch, batch, spacing, origin)  # warm-up
     once = {}
-    out = with_counts(gpu_ops, once, engine.estimate_pose_batch, batch, spacing, origin)
+    out = with_counts(once, engine.estimate_pose_batch, batch, spacing, origin)
     for k, v in once.items():
         tally[k] += v
     for row, (_, truth, _) in enumerate(scenes):
@@ -986,7 +990,7 @@ def phase_batch_async(model, card, paths):
         raise AssertionError("the batch did not launch the kernels of one estimate_pose per volume")
 
     def batch_call():
-        with_counts(gpu_ops, tally, engine.estimate_pose_batch, batch, spacing, origin)
+        with_counts(tally, engine.estimate_pose_batch, batch, spacing, origin)
 
     def sequential():
         for data in datas:
@@ -1012,7 +1016,7 @@ def phase_batch_async(model, card, paths):
     log.addHandler(esc)
     try:
         t0 = time.perf_counter()
-        out = with_counts(gpu_ops, tally, engine.estimate_pose_batch, np.stack(mixed), spacing, origin)
+        out = with_counts(tally, engine.estimate_pose_batch, np.stack(mixed), spacing, origin)
         mixed_ms = (time.perf_counter() - t0) * 1e3
     finally:
         log.removeHandler(esc)
@@ -1035,12 +1039,12 @@ def phase_batch_async(model, card, paths):
     for i, (frame, (_, truth, _)) in enumerate(zip(frames, scenes)):
         want = sync_eng.estimate_pose(frame, keep_segmentation=False)
         t0 = time.perf_counter()
-        handle, where = syncs_in(lambda: with_counts(gpu_ops, tally, async_eng.estimate_pose_async, frame))
+        handle, where = syncs_in(lambda: with_counts(tally, async_eng.estimate_pose_async, frame))
         t1 = time.perf_counter()
         dispatched = torch.cuda.Event()
         dispatched.record()
         pending = not dispatched.query()  # the card still had the frame's work when dispatch returned
-        got = with_counts(gpu_ops, tally, async_eng.estimate_pose_collect, handle)
+        got = with_counts(tally, async_eng.estimate_pose_collect, handle)
         t2 = time.perf_counter()
         print(f"async frame {i}: dispatch_ms={(t1 - t0) * 1e3:.3f} collect_ms={(t2 - t1) * 1e3:.3f} "
               f"work pending at return: {pending} "
@@ -1186,11 +1190,10 @@ def phase_stream(model, vol512, vol256, card):
     import tempfile
 
     import torch
-    from mamri_tpu_torch import native
+    from mamri_tpu_torch import _build, native
     from mamri_tpu_torch.api.demo import bench_base_tf
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.api.streaming import PoseTracker
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.dicom import save_dicom_series
     from mamri_tpu_torch.perception.formats import load_volume, save_nrrd
     from mamri_tpu_torch.perception.io import save_nifti
@@ -1248,7 +1251,7 @@ def phase_stream(model, vol512, vol256, card):
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()
     log.addHandler(esc)
-    gpu_ops.reset_launch_counts()  # the stream path from here on
+    _build.reset_launch_counts()  # the stream path from here on
     try:
         # ---- 3: the synchronous tracker on the full frames
         tracer = Tracer()
@@ -1343,8 +1346,8 @@ def phase_stream(model, vol512, vol256, card):
             tr.last_estimate = sync_res[0]  # anchors the window on frame 0's pose
             call_vol = tr._crop_roi(volume) if tracker_args else volume
             step_tally, call_tally = {}, {}
-            with_counts(gpu_ops, step_tally, tr.step, volume)
-            with_counts(gpu_ops, call_tally, e_call.estimate_pose, call_vol, keep_segmentation=False)
+            with_counts(step_tally, tr.step, volume)
+            with_counts(call_tally, e_call.estimate_pose, call_vol, keep_segmentation=False)
             if step_tally != call_tally or (tracker_args and tr.roi_frames != 1):
                 raise AssertionError(f"stream {label} frame launched {step_tally}, estimate_pose {call_tally}")
             tallies[label] = step_tally
@@ -1354,7 +1357,7 @@ def phase_stream(model, vol512, vol256, card):
     uncertified = [m for m in esc.messages if "uncertified" in m]
     if uncertified:
         raise AssertionError(f"stream: uncertified segmentations: {uncertified}")
-    counts = read_path_counts(gpu_ops, DEFAULT_PATH_KERNELS[:-1], "stream path")
+    counts = read_path_counts(DEFAULT_PATH_KERNELS[:-1], "stream path")
 
     # timings: frames per mode, and the uploads
     for label, tracker in (("sync", sync), ("ROI", roi), ("pipelined", pipe)):
@@ -1472,7 +1475,6 @@ def phase_global(model, vol256, card, paths, device):
     the matcher alone on the card against the CPU."""
     import torch
     from mamri_tpu_torch.api.engine import MamriEngine
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets, match_l_shaped_triplets_global
 
     default, glob = MamriEngine(device=device), MamriEngine(device=device, match_mode="global")
@@ -1486,7 +1488,7 @@ def phase_global(model, vol256, card, paths, device):
         for label, eng in (("default", default), ("global", glob)):
             eng.current_angles = np.zeros(6, np.float32)
             t0 = time.perf_counter()
-            res[label] = with_counts(gpu_ops, tally[label], eng.estimate_pose, vol256)
+            res[label] = with_counts(tally[label], eng.estimate_pose, vol256)
             lat[label].append((time.perf_counter() - t0) * 1e3)
             check_pose(eng, res[label], TRUE_ANGLES, f"{label} mode 256^3")
         got, want = res["global"], res["default"]
@@ -1564,14 +1566,14 @@ def phase_hardware(gpu, card):
     loop running, a `watch` subscriber, the planned keyframes executed."""
     import threading
 
+    from mamri_tpu_torch import _build
     from mamri_tpu_torch.hw.sim import simulated_hardware
-    from mamri_tpu_torch.perception import gpu_ops
 
     kf_steps = np.stack([gpu.convert_angles_to_steps(k) for k in gpu.trajectory_keyframes])
     start = np.asarray(gpu.convert_angles_to_steps(np.zeros(6, np.float32)))
     longest = float(np.abs(np.diff(np.vstack([start, kf_steps]), axis=0)).max())
     speed = max(1000.0, longest / HW_SEGMENT_S)
-    launches = dict(gpu_ops.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     stack, robot, shutdown = simulated_hardware(gpu, speed_steps_per_s=speed)
     stop_sync = stack.start_sync_loop()
     cb_ms = []
@@ -1608,7 +1610,7 @@ def phase_hardware(gpu, card):
     poses = [f for f in watched if f["event"] == "pose"]
     if not (poses and watched[-1]["event"] == "task_finished" and all("tcp_world" in f for f in poses)):
         raise AssertionError(f"hardware: watched frames {watched[-3:]}")
-    if dict(gpu_ops.LAUNCHES) != launches:
+    if dict(_build.LAUNCHES) != launches:
         raise AssertionError("hardware: the loop launched a kernel")
     print(f"hardware: {len(kf_steps)} keyframes at {speed:.1f} steps/s in {run_s:.3f} s, {len(cb_ms)} ticks, "
           f"pose_cb p50_ms={np.percentile(cb_ms, 50):.4f} p95_ms={np.percentile(cb_ms, 95):.4f} "
@@ -1622,12 +1624,12 @@ def phase_exports(gpu, cpu, card):
     import shutil
     import tempfile
 
-    from mamri_tpu_torch.perception import gpu_ops
+    from mamri_tpu_torch import _build
     from mamri_tpu_torch.utils.html_viewer import read_html_scene_summary
     from mamri_tpu_torch.utils.scene import capsule_mesh
     from mamri_tpu_torch.utils.stl import load_stl, save_stl
 
-    launches = dict(gpu_ops.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="exports-", dir=os.path.join(REPO, "build"))
     try:
@@ -1687,7 +1689,7 @@ def phase_exports(gpu, cpu, card):
             raise AssertionError(f"render_scene: {differ:.4%} of the pixels differ between card and CPU (limit 0.5%)")
     finally:
         shutil.rmtree(tmp)
-    if dict(gpu_ops.LAUNCHES) != launches:
+    if dict(_build.LAUNCHES) != launches:
         raise AssertionError("exports launched a kernel")
     print(f"exports: card = CPU engine (summaries, vertices, transforms and boxes within {gap} mm; {differ:.4%} of "
           f"the {size[0]}x{size[1]} PNG's pixels differ); scene {json.dumps(summary)}; trajectory "
@@ -1787,11 +1789,11 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
     import threading
 
     import torch
+    from mamri_tpu_torch import _build
     from mamri_tpu_torch.__main__ import main as cli_main
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.api.server import MamriServer, _pose_json, _rss_mb, make_http_server, serve
     from mamri_tpu_torch.hw.sim import simulated_hardware
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.formats import load_volume, save_nrrd
     from mamri_tpu_torch.perception.volume import Volume
 
@@ -1827,7 +1829,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
         """One request from the engine's zero state -> (status, JSON, ms, its launches)."""
         engine.current_angles = zeros
         once = {}
-        status, out, ms = with_counts(gpu_ops, once, request, url + route, **kw)
+        status, out, ms = with_counts(once, request, url + route, **kw)
         rss_trace.append(round(_rss_mb(), 1))
         totals = tally.setdefault(label, {})
         for k, v in once.items():
@@ -1860,7 +1862,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
             engine.current_angles = zeros
             one_call.clear()
             t0 = time.perf_counter()
-            res = with_counts(gpu_ops, one_call, engine.estimate_pose, vol)
+            res = with_counts(one_call, engine.estimate_pose, vol)
             direct_ms.append((time.perf_counter() - t0) * 1e3)
         if _pose_json(res) != payloads[0]:
             raise AssertionError(f"served /estimate {payloads[0]} != _pose_json(estimate_pose) {_pose_json(res)}")
@@ -1926,7 +1928,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
             return threads
 
         t0 = time.perf_counter()
-        threads = with_counts(gpu_ops, tally.setdefault("/estimate (4 threads)", {}), four_at_once)
+        threads = with_counts(tally.setdefault("/estimate (4 threads)", {}), four_at_once)
         burst_ms = (time.perf_counter() - t0) * 1e3
         if any(t.is_alive() for t in threads) or any(r[0] != 200 or r[1] != results[0][1] for r in results):
             raise AssertionError(f"4 concurrent /estimate: {results}")
@@ -1975,7 +1977,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
 
     # ---- 4: the hardware routes and the /watch mirror on a simulated rig at the reference's tick
     goal_steps = pl["goal_steps"]
-    launches = dict(gpu_ops.LAUNCHES)
+    launches = dict(_build.LAUNCHES)
     stack, robot, shutdown = simulated_hardware(engine, speed_steps_per_s=max(1000.0, max(map(abs, goal_steps))
                                                                                / HW_SEGMENT_S))
     core = MamriServer(engine=engine, hw_tick_s=HW_TICK_S)
@@ -2016,7 +2018,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
         raise AssertionError(f"/watch: {sse.get('type')} {events[-3:]}")
     if status != 200 or hs["status"]["encoder_steps"] != goal_steps:
         raise AssertionError(f"/hw/status after the move: {status} {hs}, target {goal_steps}")
-    if dict(gpu_ops.LAUNCHES) != launches:
+    if dict(_build.LAUNCHES) != launches:
         raise AssertionError("the hardware routes launched a kernel")
     print(f"hardware routes: /hw/move to the /plan goal {goal_steps}, /watch ({sse['type']}) read {len(events)} "
           f"frames ({len(poses)} pose) to task_finished success in {move_s:.3f} s at the {HW_TICK_S} s tick; "
@@ -2028,7 +2030,7 @@ def phase_serve(model, clinical, card, paths, bench_shape=(256, 256, 256), devic
     def cli(argv):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = with_counts(gpu_ops, cli_tally, cli_main, argv + platform)
+            rc = with_counts(cli_tally, cli_main, argv + platform)
         return rc, json.loads(buf.getvalue())
 
     t0 = time.perf_counter()
@@ -2242,7 +2244,6 @@ def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
     from mamri_tpu_torch.parallel import make_mesh, run_sharded_batched
     from mamri_tpu_torch.parallel.dryrun import dryrun_multichip
     from mamri_tpu_torch.parallel.shard_seg import segment_volume_threads
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.segmentation import SegmentationParams, segment_volume
 
     t_phase = time.perf_counter()
@@ -2272,7 +2273,7 @@ def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
                                           force_general=force_general, timeout=300)
 
         once = {}
-        got = with_counts(gpu_ops, once, sharded)
+        got = with_counts(once, sharded)
         _seg_equal(got, want, label)
         for k, v in once.items():
             tallies[path][k] = tallies[path].get(k, 0) + v
@@ -2304,7 +2305,7 @@ def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
     tally = {}
     try:
         t0 = time.perf_counter()
-        out, final, certified = with_counts(gpu_ops, tally, run_sharded_batched, engine, mesh, batch,
+        out, final, certified = with_counts(tally, run_sharded_batched, engine, mesh, batch,
                                             vol256.spacing, vol256.origin, sp_axis="sp")
         esc_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2323,7 +2324,7 @@ def phase_sharded(model, vol256, vol512, card, paths, device="cuda"):
 
     tally = {}
     t0 = time.perf_counter()
-    shapes = with_counts(gpu_ops, tally, dryrun_multichip, 4, device=device)
+    shapes = with_counts(tally, dryrun_multichip, 4, device=device)
     print(f"dryrun_multichip(4) on the card: {shapes} in {time.perf_counter() - t0:.1f} s ({card})")
     paths["dryrun"] = read_tally(tally, SHARD_FAST_KERNELS, "dry-run path")
     print(f"phase 13 (sharded segmentation and the mesh) took {time.perf_counter() - t_phase:.1f} s")
@@ -2366,13 +2367,12 @@ def phase_tools(model, card, paths, device="cuda"):
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.core.robot import fk_all_links, load_robot_model
     from mamri_tpu_torch.ik.trf import solve_trajectory_trf
-    from mamri_tpu_torch.perception import gpu_ops
 
     t_phase = time.perf_counter()
 
     # (a) the oracle: LM within 0.05 deg of TRF from the truth, never a higher cost than TRF
     t0, tally = time.perf_counter(), {}
-    summary, lm_vs_trf = with_counts(gpu_ops, tally, load_tool("ik_oracle").run_oracle, device, 4, sys.stdout)
+    summary, lm_vs_trf = with_counts(tally, load_tool("ik_oracle").run_oracle, device, 4, sys.stdout)
     print("ik_oracle summary: " + json.dumps({k: v for k, v in summary.items() if k != "scenes"}))
     print(f"ik_oracle max |LM - TRF from the truth| deg by scene: {json.dumps(lm_vs_trf)} "
           f"({time.perf_counter() - t0:.1f} s, LM on {device})")
@@ -2391,7 +2391,7 @@ def phase_tools(model, card, paths, device="cuda"):
     solved = {}
     for where, m in (("cpu", host), (device, card_model)):
         t0 = time.perf_counter()
-        solved[where] = with_counts(gpu_ops, tally, solve_trajectory_trf, m, target, base,
+        solved[where] = with_counts(tally, solve_trajectory_trf, m, target, base,
                                     current_angles=TRAJECTORY_TRF_ANGLES + 0.3)
         print(f"trajectory TRF, residual on {where}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
               f"nfev {solved[where].nfev}, position error {solved[where].rmse:.2e} mm")
@@ -2402,8 +2402,8 @@ def phase_tools(model, card, paths, device="cuda"):
           f"(costs card {got.per_guess_cost.tolist()} CPU {want.per_guess_cost.tolist()})")
     if not (gap < 1e-3 and pick_gap < 1e-3 and got.rmse < 1.0):
         raise AssertionError("trajectory TRF: the card model parts from the CPU model by >= 1e-3 rad")
-    if any(tally.values()):
-        raise AssertionError(f"the oracle or the trajectory TRF launched a kernel: {tally}")
+    if any(tally[name] for name in KERNELS):  # the pose IK's LM and Kabsch kernels are the oracle's to launch
+        raise AssertionError(f"the oracle or the trajectory TRF launched a segmentation kernel: {tally}")
 
     # (c) the soak: every frame passes check_pose's criteria
     soak = load_tool("soak")
@@ -2415,7 +2415,7 @@ def phase_tools(model, card, paths, device="cuda"):
         check_estimate(res, truth, f"soak frame {i} ({kind})", rmse_max=1.5 if kind == "noisy" else 0.5)
 
     engine, tally = MamriEngine(device=device), {}
-    run = with_counts(gpu_ops, tally, soak.run_soak, engine, vols, TOOL_SOAK_FRAMES, TOOL_SOAK_NOISY_EVERY,
+    run = with_counts(tally, soak.run_soak, engine, vols, TOOL_SOAK_FRAMES, TOOL_SOAK_NOISY_EVERY,
                       TOOL_SOAK_ALT_EVERY, check_frame)
     rec = soak.soak_record(TOOL_SOAK_FRAMES, engine, *run, shape_a, shape_b)
     print(f"soak_torch: {json.dumps(rec)} ({card})")
@@ -2426,7 +2426,7 @@ def phase_tools(model, card, paths, device="cuda"):
     # (d) batch scaling at 256^3: rows equal single calls, int16 equal to float32
     scaling, tally = load_tool("batch_scaling"), {}
     vol = scaling.bench_batch_volume(model, 256)
-    done = with_counts(gpu_ops, tally, scaling.scale, MamriEngine(device=device), vol, TOOL_BATCH_SIZES,
+    done = with_counts(tally, scaling.scale, MamriEngine(device=device), vol, TOOL_BATCH_SIZES,
                        TOOL_BATCH_MICRO, 2)
     for rec, small in done:
         if small is None or not (rec["success"] and rec["certified"]):
@@ -2446,7 +2446,7 @@ def phase_tools(model, card, paths, device="cuda"):
     # (e) the per-stage profile at 256^3: each stage's kernels against the twins on the host
     profile, tally = load_tool("profile_stages"), {}
     data = profile.profile_scene(256)
-    rows = with_counts(gpu_ops, tally, profile.run_stages, torch.from_numpy(data).to(device), REPS)
+    rows = with_counts(tally, profile.run_stages, torch.from_numpy(data).to(device), REPS)
     t0 = time.perf_counter()
     twins = profile.run_stages(torch.from_numpy(data), 0)
     for (name, ms, out), (_, _, want) in zip(rows, twins):
@@ -2502,15 +2502,14 @@ def phase_bench(vol256, card, paths, device="cuda", cfg=BENCH_SMOKE):
     may synchronize from `PIPELINE_FILES`."""
     import bench_torch
     from mamri_tpu_torch.api.engine import MamriEngine
-    from mamri_tpu_torch.perception import gpu_ops
 
     t_phase, tally = time.perf_counter(), {}
-    rec = with_counts(gpu_ops, tally, bench_torch.run, device, **cfg)
+    rec = with_counts(tally, bench_torch.run, device, **cfg)
     print("bench_torch record: " + json.dumps(rec))
     engine = MamriEngine(device=device)
     _, f1 = bench_torch.make_fns(engine, vol256.shape, vol256.spacing, vol256.origin, engine.seg_params)
     dev_one = engine._upload(vol256.data)
-    (p50, _), where = syncs_in(lambda: with_counts(gpu_ops, tally, bench_torch.chained_latency, engine, f1, dev_one,
+    (p50, _), where = syncs_in(lambda: with_counts(tally, bench_torch.chained_latency, engine, f1, dev_one,
                                                    cfg["chain_k"], 1))
     print(f"host syncs in {cfg['chain_k']} chained bench calls ({p50:.1f} ms a call): {sum(where.values())} "
           f"{json.dumps(where)} ({card})")
@@ -2535,7 +2534,6 @@ def main() -> int:
     from mamri_tpu_torch import _build
     from mamri_tpu_torch.api.engine import MamriEngine
     from mamri_tpu_torch.core.robot import load_robot_model
-    from mamri_tpu_torch.perception import gpu_ops
     from mamri_tpu_torch.perception.segmentation import SegmentationParams
 
     # ---- phase 1: card, versions, build
@@ -2579,10 +2577,10 @@ def main() -> int:
         time_segmentation(vol, f"non-fused {label}", nonfused, card)
 
     # ---- phases 3-5: the default path; counts from here on are the path's
-    gpu_ops.reset_launch_counts()
+    _build.reset_launch_counts()
     engine = MamriEngine(device="cuda")
     engine.estimate_pose(vol256)  # warm-up
-    per_call = {"fused": dict(gpu_ops.LAUNCHES)}
+    per_call = {"fused": dict(_build.LAUNCHES)}
     p50 = time_estimates(engine, vol256, "main 256^3", card)
     report_host_syncs(engine, vol256)
     lm_timing = check_fused_lm(engine, vol256, base256, card, floor)
@@ -2592,7 +2590,7 @@ def main() -> int:
     esc = _Escalations()
     log.addHandler(esc)
     try:
-        before = gpu_ops.LAUNCHES["run_stats_compact"]
+        before = _build.LAUNCHES["run_stats_compact"]
         eng = MamriEngine(device="cuda")
         res = eng.estimate_pose(speckle_scene(model))
         check_pose(eng, res, TRUE_ANGLES, "speckle 2.5 mm", rmse_max=1.5)
@@ -2600,32 +2598,32 @@ def main() -> int:
             raise AssertionError("speckle scene did not escalate")
         if int(eng.last_segmentation["num_components"]) <= 1000:
             raise AssertionError("speckle scene: the final segmentation missed speckle components")
-        if gpu_ops.LAUNCHES["run_stats_compact"] == before:
+        if _build.LAUNCHES["run_stats_compact"] == before:
             raise AssertionError("speckle scene: compact run_stats never launched")
         print(f"speckle escalations: {[m for m in esc.messages if 'escalation' in m]}")
 
         esc.messages.clear()
-        before = gpu_ops.LAUNCHES["check"]
+        before = _build.LAUNCHES["check"]
         eng = MamriEngine(device="cuda", seg_params=SegmentationParams(max_sweeps=1, max_roots=128))
         res = eng.estimate_pose(test_scene(model, 2.5))  # passes = 2*max_sweeps: even
         check_pose(eng, res, TRUE_ANGLES, "starved sweeps 2.5 mm", rmse_max=1.5)
-        if gpu_ops.LAUNCHES["check"] == before:
+        if _build.LAUNCHES["check"] == before:
             raise AssertionError("starved sweeps: the three-axis check never launched")
         print(f"starved-sweep escalations: {[m for m in esc.messages if 'escalation' in m]}")
     finally:
         log.removeHandler(esc)
 
     cold_warm(MamriEngine(device="cuda"), vol512, "512x512x192", card)
-    paths = {"estimate_default": read_path_counts(gpu_ops, DEFAULT_PATH_KERNELS, "default path")}
+    paths = {"estimate_default": read_path_counts(DEFAULT_PATH_KERNELS, "default path")}
 
     # ---- phase 6: the non-fused branch (closing_radius != 2)
-    gpu_ops.reset_launch_counts()
+    _build.reset_launch_counts()
     engine = MamriEngine(device="cuda", seg_params=nonfused)
     engine.estimate_pose(vol256)  # warm-up
-    per_call["nonfused"] = dict(gpu_ops.LAUNCHES)
+    per_call["nonfused"] = dict(_build.LAUNCHES)
     p50_nf = time_estimates(engine, vol256, "non-fused 256^3", card)
     cold_warm(MamriEngine(device="cuda", seg_params=nonfused), vol512, "non-fused 512x512x192", card)
-    paths["estimate_nonfused"] = read_path_counts(gpu_ops, NONFUSED_PATH_KERNELS, "non-fused path")
+    paths["estimate_nonfused"] = read_path_counts(NONFUSED_PATH_KERNELS, "non-fused path")
     if paths["estimate_nonfused"]["close_init"]:
         raise AssertionError("non-fused path launched close_init: the fused branch ran")
     print(f"launches per estimate_pose at 256^3: {per_call}")
@@ -2634,7 +2632,7 @@ def main() -> int:
     # ---- phase 7: the kernel-parity harness
     from mamri_tpu_torch.perception.parity import run_parity_checks
 
-    gpu_ops.reset_launch_counts()
+    _build.reset_launch_counts()
     for size in (128, 80):
         t0 = time.perf_counter()
         rep = run_parity_checks(size, device="cuda")
@@ -2642,7 +2640,7 @@ def main() -> int:
               f"seconds={time.perf_counter() - t0:.3f}")
         if not rep["all_exact"]:
             raise AssertionError(f"parity size {size} failed: {json.dumps(rep)}")
-    paths["parity"] = read_path_counts(gpu_ops, tuple(KERNELS), "parity harness")
+    paths["parity"] = read_path_counts(tuple(KERNELS), "parity harness")
 
     # ---- phase 8: batch and async at 256^3
     phase_batch_async(model, card, paths)

@@ -7,6 +7,14 @@ seconds). The library lands in `build/mamri_tpu_torch/<hash>/` beside
 the package, keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as it is. Nothing is built or
 loaded on import: the first wrapper that launches a kernel calls `library()`.
+
+It is also the one seam every kernel wrapper (`perception/gpu_ops.py`,
+`ik/fused_lm.py`, `registration/kabsch.py`) goes through: `on_cuda` picks
+the kernel or the plain twin from the tensors' device, `check` holds a
+tensor to what a C entry reads, and `launch` calls an entry on the current
+stream of the inputs' device, raises on a CUDA error and adds one to the
+kernel's count in `LAUNCHES`. The counts are taken under a lock, since the
+shards of `parallel.shard_seg` launch from threads of their own.
 """
 
 from __future__ import annotations
@@ -18,7 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -47,6 +58,12 @@ _SIGNATURES = {
                             _F, _P, _P, _P, _P],
     "mamri_kabsch": [_P, _P, ctypes.c_longlong, _I, _P],
 }
+
+# kernel launches by wrapper name, so a run can show which kernels it went through
+LAUNCHES = dict.fromkeys(
+    ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats", "run_stats_compact", "scan_lines",
+     "root_candidates", "component_stats_xyz", "component_stats_raster", "full_chain_lm", "kabsch"), 0)
+_LAUNCHES_LOCK = threading.Lock()
 
 # what the last build in this process took and printed (read by chip_smoke.py)
 last_build = {"seconds": 0.0, "log": "", "path": ""}
@@ -124,3 +141,44 @@ def library() -> ctypes.CDLL:
     lib.mamri_error_string.argtypes = [_I]
     lib.mamri_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def reset_launch_counts() -> None:
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def on_cuda(*tensors) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
+    twin); anything else, or a mix of devices, is an error."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"tensors on different devices: {[str(t.device) for t in tensors]}")
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def check(t, name, dtype, shape=None) -> None:
+    """`t` must be `dtype`, of `shape` where one is given, and contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call the C entry `entry` with `args` on the current stream of
+    `device`, the inputs' card; a CUDA error is raised as `name`'s, and a
+    launch adds one to `LAUNCHES[name]`."""
+    lib = library()
+    err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1

@@ -15,7 +15,7 @@ that program over its volumes on one stream, fetched once per batch (and
 once per escalation round); planning builds the collision world once per
 body on the engine's device and returns each result through one fetch.
 `link_world_transforms` and the exports run the FK on the engine's device
-(a path's samples in one vmapped call) and fetch once; the hardware loop's
+(a path's samples in one batched call) and fetch once; the hardware loop's
 per-tick paths (`attach_hardware`'s pose callback, `HardwareStack.status`)
 use the host FK and never touch the device.
 """
@@ -33,7 +33,6 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from mamri_tpu_torch.api.types import ActionState, PoseEstimate, TrajectoryPlan
 from mamri_tpu_torch.core import transforms
@@ -232,10 +231,10 @@ class MamriEngine:
 
     def _path_fk(self) -> Tuple[np.ndarray, np.ndarray]:
         """(S, L, 4, 4) FK of every sample of `trajectory_path` and the (S, 3)
-        needle tips: one vmapped FK on the engine's device, one fetch."""
+        needle tips: one batched FK on the engine's device, one fetch."""
         f32 = torch.float32
         base = self._upload(self._base_or_eye(), f32)
-        tfs = vmap(lambda a: fk_all_links(self.model, a, base))(self._upload(self.trajectory_path, f32))
+        tfs = fk_all_links(self.model, self._upload(self.trajectory_path, f32), base)
         ntf = tfs[:, self.model.link_index("Needle")]
         tips = torch.einsum("sij,j->si", ntf[:, :3, :3], self.model.needle_tip) + ntf[:, :3, 3]
         out = self._fetch({"tfs": tfs, "tips": tips})

@@ -216,22 +216,22 @@ def robot_model_from_numpy(
 
 
 def fk_all_links(model: RobotModel, angles, base_tf=None):
-    """(L, 4, 4) world transforms of every link for (J,) angles in radians;
-    world = parent_world @ fixed_offset @ articulation."""
-    if angles.shape != (model.num_joints,):
-        raise ValueError(f"angles must have shape ({model.num_joints},), got {tuple(angles.shape)}")
+    """(..., L, 4, 4) world transforms of every link for (..., J) angles in
+    radians, from `base_tf` (4, 4) or a batch of them that broadcasts against
+    the angles'; world = parent_world @ fixed_offset @ articulation."""
+    if angles.dim() < 1 or angles.shape[-1] != model.num_joints:
+        raise ValueError(f"angles must have shape (..., {model.num_joints}), got {tuple(angles.shape)}")
     if base_tf is None:
         base_tf = torch.eye(4, dtype=angles.dtype, device=angles.device)
     world: List[torch.Tensor] = []
     for i, spec in enumerate(model.specs):
         parent_tf = base_tf if spec.parent < 0 else world[spec.parent]
+        local = model.fixed_offsets[i]
         if spec.joint_index >= 0:
-            art = transforms.articulation_matrix(spec.axis_code, angles[spec.joint_index])
-            local = model.fixed_offsets[i] @ art
-        else:
-            local = model.fixed_offsets[i]
+            local = local @ transforms.articulation_matrix(spec.axis_code, angles[..., spec.joint_index])
         world.append(parent_tf @ local)
-    return torch.stack(world, dim=0)
+    # links above the first joint carry only the base's batch
+    return torch.stack(torch.broadcast_tensors(*world), dim=-3)
 
 
 def fk_all_links_host(model: RobotModel, angles, base_tf=None) -> np.ndarray:
@@ -267,7 +267,7 @@ def fk_all_links_host(model: RobotModel, angles, base_tf=None) -> np.ndarray:
 
 def fk_link(model: RobotModel, angles, link_name: str, base_tf=None):
     """World transform of one named link."""
-    return fk_all_links(model, angles, base_tf)[model.link_index(link_name)]
+    return fk_all_links(model, angles, base_tf)[..., model.link_index(link_name), :, :]
 
 
 def marker_world_positions(model: RobotModel, angles, link_name: str, base_tf=None, local_override=None):

@@ -16,6 +16,7 @@ import torch
 
 from mamri_tpu_torch.core import transforms
 from mamri_tpu_torch.core.robot import RobotModel
+from mamri_tpu_torch.ik.fused_lm import joint6_local
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform
 
 _IS_PA_PATTERN = (1, 2, 2, 1, 2, 1)  # AXIS_IS / AXIS_PA codes of Joint1..Joint6
@@ -33,9 +34,7 @@ def chain_is_analytic(model: RobotModel) -> bool:
 
 def joint6_frame_from_markers(model: RobotModel, joint6_targets, apply_correction):
     """World pose of the Joint6 frame implied by its detected triplet."""
-    local = model.marker_local[model.link_index("Joint6")]
-    local = torch.where(apply_correction, transforms.flip_xy(local), local)
-    return kabsch_rigid_transform(local, joint6_targets)
+    return kabsch_rigid_transform(joint6_local(model, apply_correction), joint6_targets)
 
 
 def _rigid_inverse(tf):

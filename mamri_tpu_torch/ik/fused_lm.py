@@ -19,55 +19,41 @@ symmetric positive definite, by Cholesky.
 The generic `least_squares_lm` (any residual, `vmap(jacfwd)` Jacobian) stays
 for the trajectory IK and the reference solver; nothing is shared with it.
 Under a current tracer the solve is span `ik.lm.solve` and adds one to the
-request's counter `ik.lm.fused_solves`. `LAUNCHES` counts kernel launches.
+request's counter `ik.lm.fused_solves`; the launch is counted in
+`_build.LAUNCHES["full_chain_lm"]`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.core import transforms
-from mamri_tpu_torch.core.robot import RobotModel
+from mamri_tpu_torch.core.robot import RobotModel, fk_all_links
 from mamri_tpu_torch.ik.lm import LMResult
-from mamri_tpu_torch.perception.gpu_ops import _check, _on_cuda
 from mamri_tpu_torch.utils.trace import current_count, current_span
 
 JOINT4_WEIGHT = 0.05
 LM_JOINTS = 6  # csrc/lm.cu: the joints of the chain it solves
 LM_MAX_LINKS = 16  # csrc/lm.cu: the links a block keeps in shared memory
 
-LAUNCHES = {"full_chain_lm": 0}
-_LAUNCHES_LOCK = threading.Lock()
 
-
-def reset_launch_counts() -> None:
-    with _LAUNCHES_LOCK:
-        LAUNCHES["full_chain_lm"] = 0
-
-
-def _link_frames(model: RobotModel, x, base_tf):
-    """[(G, 4, 4)] world transform of every link at each row of x (G, J):
-    `fk_all_links` written out over the guess axis."""
-    world = []
-    for i, spec in enumerate(model.specs):
-        parent = base_tf if spec.parent < 0 else world[spec.parent]
-        local = model.fixed_offsets[i]
-        if spec.joint_index >= 0:
-            local = local @ transforms.articulation_matrix(spec.axis_code, x[:, spec.joint_index])
-        world.append(parent @ local)
-    return world
+def joint6_local(model: RobotModel, apply_correction):
+    """(3, 3) Joint6 marker points in its local frame, turned 180 degrees
+    about z where the () bool `apply_correction` holds."""
+    local = model.marker_local[model.link_index("Joint6")]
+    return torch.where(apply_correction, transforms.flip_xy(local), local)
 
 
 def _joint_axis(frame, axis_code: int):
-    """(G, 3) world axis of a joint frame, signed as `articulation_matrix` turns."""
+    """(..., 3) world axis of a joint frame, signed as `articulation_matrix` turns."""
     if axis_code == transforms.AXIS_IS:
-        return frame[:, :3, 2]
+        return frame[..., :3, 2]
     if axis_code == transforms.AXIS_PA:
-        return -frame[:, :3, 1]
-    return frame[:, :3, 0]
+        return -frame[..., :3, 1]
+    return frame[..., :3, 0]
 
 
 def _descends(model: RobotModel, link: int, ancestor: int) -> bool:
@@ -89,34 +75,37 @@ def full_chain_jacobian(
     joint4_weight: float = JOINT4_WEIGHT,
     jacobian: bool = True,
 ):
-    """(r (G, 18), J (G, 18, J) or None): `full_chain_residual` at each row of
-    x (G, J) and, where `jacobian`, its Jacobian in closed form."""
+    """(r (..., 18), J (..., 18, J) or None): the full-chain marker residual
+    (`ik/residuals.full_chain_residual`) at x (..., J) and, where `jacobian`,
+    its Jacobian in closed form. The 18 rows are 9 Joint6 marker errors (the
+    Joint6 local frame turned 180 degrees about z where `apply_correction`)
+    and the Joint4 block, weighted `joint4_weight` where `joint4_found` and 0
+    otherwise; `joint4_targets` None and `joint4_found` None mean zeros and
+    False."""
     i6, i4 = model.link_index("Joint6"), model.link_index("Joint4")
-    world = _link_frames(model, x, base_tf)
-    local6 = model.marker_local[i6]
-    local6 = torch.where(apply_correction, transforms.flip_xy(local6), local6)
+    world = fk_all_links(model, x, base_tf)
     if joint4_targets is None:
         joint4_targets = torch.zeros((3, 3), dtype=x.dtype, device=x.device)
     found4 = torch.zeros((), dtype=torch.bool, device=x.device) if joint4_found is None else joint4_found
     w4 = torch.where(found4, joint4_weight, 0.0)
-    p6 = transforms.apply(world[i6], local6)  # (G, 3, 3)
-    p4 = transforms.apply(world[i4], model.marker_local[i4])
-    r = torch.cat([(p6 - joint6_targets).flatten(1), (w4 * (p4 - joint4_targets)).flatten(1)], 1)
+    p6 = transforms.apply(world[..., i6, :, :], joint6_local(model, apply_correction))  # (..., 3, 3)
+    p4 = transforms.apply(world[..., i4, :, :], model.marker_local[i4])
+    r = torch.cat([(p6 - joint6_targets).flatten(-2), (w4 * (p4 - joint4_targets)).flatten(-2)], -1)
     if not jacobian:
         return r, None
     cols = []
     for link in model.articulated_links:
-        frame = world[link]
-        axis = _joint_axis(frame, model.specs[link].axis_code)[:, None, :]
-        origin = frame[:, None, :3, 3]
+        frame = world[..., link, :, :]
+        axis = _joint_axis(frame, model.specs[link].axis_code)[..., None, :]
+        origin = frame[..., None, :3, 3]
         col = []
         for p, marker_link, w in ((p6, i6, None), (p4, i4, w4)):
             if _descends(model, marker_link, link):
                 c = torch.linalg.cross(axis.expand_as(p), p - origin, dim=-1)
-                col.append((c if w is None else w * c).flatten(1))
+                col.append((c if w is None else w * c).flatten(-2))
             else:
-                col.append(torch.zeros_like(p).flatten(1))
-        cols.append(torch.cat(col, 1))
+                col.append(torch.zeros_like(p).flatten(-2))
+        cols.append(torch.cat(col, -1))
     return r, torch.stack(cols, -1)
 
 
@@ -208,27 +197,25 @@ def _check_inputs(model, guesses, lower, upper, base_tf, joint6_targets, apply_c
     nj = model.num_joints
     if guesses.dim() != 2 or guesses.shape[0] < 1:
         raise ValueError(f"full_chain_lm guesses: expected (G, {nj}) with G >= 1, got {tuple(guesses.shape)}")
-    _check(guesses, "full_chain_lm guesses", torch.float32, (guesses.shape[0], nj))
-    _check(lower, "full_chain_lm lower", torch.float32, (nj,))
-    _check(upper, "full_chain_lm upper", torch.float32, (nj,))
-    _check(base_tf, "full_chain_lm base_tf", torch.float32, (4, 4))
-    _check(joint6_targets, "full_chain_lm joint6_targets", torch.float32, (3, 3))
-    _check(apply_correction, "full_chain_lm apply_correction", torch.bool, ())
+    _build.check(guesses, "full_chain_lm guesses", torch.float32, (guesses.shape[0], nj))
+    _build.check(lower, "full_chain_lm lower", torch.float32, (nj,))
+    _build.check(upper, "full_chain_lm upper", torch.float32, (nj,))
+    _build.check(base_tf, "full_chain_lm base_tf", torch.float32, (4, 4))
+    _build.check(joint6_targets, "full_chain_lm joint6_targets", torch.float32, (3, 3))
+    _build.check(apply_correction, "full_chain_lm apply_correction", torch.bool, ())
     tensors = [guesses, lower, upper, base_tf, joint6_targets, apply_correction, model.fixed_offsets,
                model.marker_local]
     if joint4_targets is not None:
-        _check(joint4_targets, "full_chain_lm joint4_targets", torch.float32, (3, 3))
+        _build.check(joint4_targets, "full_chain_lm joint4_targets", torch.float32, (3, 3))
         tensors.append(joint4_targets)
     if joint4_found is not None:
-        _check(joint4_found, "full_chain_lm joint4_found", torch.bool, ())
+        _build.check(joint4_found, "full_chain_lm joint4_found", torch.bool, ())
         tensors.append(joint4_found)
-    return _on_cuda(*tensors)
+    return _build.on_cuda(*tensors)
 
 
 def _launch(model, guesses, lower, upper, base_tf, joint6_targets, apply_correction, joint4_targets,
             joint4_found, num_iters, mu0, mu_inc, mu_dec, jac_eps, joint4_weight) -> LMResult:
-    from mamri_tpu_torch import _build
-
     specs = model.specs
     if model.num_joints != LM_JOINTS or len(specs) > LM_MAX_LINKS:
         raise ValueError(f"full_chain_lm: the kernel solves chains of {LM_JOINTS} joints and at most "
@@ -244,8 +231,8 @@ def _launch(model, guesses, lower, upper, base_tf, joint6_targets, apply_correct
     grad_norm = torch.empty(g_count, dtype=torch.float32, device=dev)
     iterations = torch.empty(g_count, dtype=torch.int32, device=dev)
     i6, i4 = model.link_index("Joint6"), model.link_index("Joint4")
-    lib = _build.library()
-    err = lib.mamri_full_chain_lm(
+    _build.launch(
+        "full_chain_lm", "mamri_full_chain_lm", dev,
         guesses.data_ptr(), g_count, lower.data_ptr(), upper.data_ptr(),
         ints([s.parent for s in specs]), ints([s.joint_index for s in specs]), ints([s.axis_code for s in specs]),
         len(specs), i6, i4, model.fixed_offsets.data_ptr(), base_tf.data_ptr(),
@@ -254,12 +241,7 @@ def _launch(model, guesses, lower, upper, base_tf, joint6_targets, apply_correct
         apply_correction.data_ptr(), None if joint4_found is None else joint4_found.data_ptr(), joint4_weight,
         num_iters, mu0, mu_inc, mu_dec, jac_eps,
         x.data_ptr(), cost.data_ptr(), grad_norm.data_ptr(), iterations.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"full_chain_lm: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
-    with _LAUNCHES_LOCK:
-        LAUNCHES["full_chain_lm"] += 1
     return LMResult(x=x, cost=cost, grad_norm=grad_norm, iterations=iterations)
 
 

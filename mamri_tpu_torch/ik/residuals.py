@@ -18,12 +18,11 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-from torch.func import vmap
 
 from mamri_tpu_torch.core import transforms
 from mamri_tpu_torch.core.robot import RobotModel, fk_all_links
 from mamri_tpu_torch.ik.analytic import analytic_ik_seeds, chain_is_analytic, joint6_frame_from_markers
-from mamri_tpu_torch.ik.fused_lm import JOINT4_WEIGHT, full_chain_lm
+from mamri_tpu_torch.ik.fused_lm import JOINT4_WEIGHT, full_chain_jacobian, full_chain_lm
 
 ORIENTATION_WEIGHT = 50.0
 
@@ -46,22 +45,12 @@ def full_chain_residual(
     joint4_found=None,
     joint4_weight: float = JOINT4_WEIGHT,
 ):
-    """(18,) marker-position residual. `apply_correction` and `joint4_found`
-    are () bool tensors; the Joint4 block is zero-weighted when not found."""
-    idx6 = model.link_index("Joint6")
-    idx4 = model.link_index("Joint4")
-    tfs = fk_all_links(model, angles, base_tf)
-    local6 = model.marker_local[idx6]
-    local6 = torch.where(apply_correction, transforms.flip_xy(local6), local6)
-    e6 = (transforms.apply(tfs[idx6], local6) - joint6_targets).reshape(-1)
-
-    if joint4_targets is None:
-        joint4_targets = torch.zeros((3, 3), dtype=angles.dtype, device=angles.device)
-    found4 = torch.zeros((), dtype=torch.bool, device=angles.device) if joint4_found is None else joint4_found
-    w4 = torch.where(found4, joint4_weight, 0.0)
-    pred4 = transforms.apply(tfs[idx4], model.marker_local[idx4])
-    e4 = (w4 * (pred4 - joint4_targets)).reshape(-1)
-    return torch.cat([e6, e4])
+    """(..., 18) marker-position residual at (..., J) angles (the closed-form
+    Jacobian's rows, `fused_lm.full_chain_jacobian`). `apply_correction` and
+    `joint4_found` are () bool tensors; the Joint4 block is zero-weighted
+    when not found."""
+    return full_chain_jacobian(model, angles, base_tf, joint6_targets, apply_correction, joint4_targets,
+                               joint4_found, joint4_weight, jacobian=False)[0]
 
 
 def trajectory_pose_residual(model: RobotModel, angles, base_tf, target_tf, orientation_weight: float = ORIENTATION_WEIGHT):
@@ -166,14 +155,10 @@ def solve_full_chain_ik(
     score = results.cost + 1e-4 * ((results.x - current_angles) ** 2).sum(1)
     if joint2_targets is not None:
         idx2 = model.link_index("Joint2")
-        local2 = model.marker_local[idx2]
-
-        def j2_err(x):
-            pred = transforms.apply(fk_all_links(model, x, base_tf)[idx2], local2)
-            return ((pred - joint2_targets) ** 2).sum()
-
+        pred2 = transforms.apply(fk_all_links(model, results.x, base_tf)[:, idx2], model.marker_local[idx2])
+        j2_err = ((pred2 - joint2_targets) ** 2).sum((-2, -1))
         found2 = false if joint2_found is None else joint2_found
-        score = score + torch.where(found2, 1e-2 * vmap(j2_err)(results.x), 0.0)
+        score = score + torch.where(found2, 1e-2 * j2_err, 0.0)
     # a 0-d index read on the host would wait on the card: index_select queues
     sel = torch.argmin(score).reshape(1)
     angles = results.x.index_select(0, sel)[0]

@@ -1,4 +1,4 @@
-"""The segmentation kernels: CUDA wrappers, their plain-torch twins, counters.
+"""The segmentation kernels: CUDA wrappers and their plain-torch twins.
 
 Counterpart of `mamri_tpu/perception/pallas_ops.py`. Every Pallas kernel is
 a hand-written CUDA kernel in `mamri_tpu_torch/csrc/` (built by
@@ -18,12 +18,10 @@ a hand-written CUDA kernel in `mamri_tpu_torch/csrc/` (built by
   component_stats_raster csrc/stats.cu <- component_stats_matmul
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, and then either launches its kernel on the current CUDA stream
-(CUDA tensors) or runs its plain twin (CPU tensors). There is no fallback:
-a CUDA tensor reaches the kernel or an error. `LAUNCHES` counts kernel
-launches per wrapper, so a run can show which kernels it went through; the
-counts are taken under a lock, since the shards of `parallel.shard_seg`
-launch from threads of their own.
+outputs, and then either launches its kernel through `_build.launch`, which
+counts it in `_build.LAUNCHES` under the wrapper's name (CUDA tensors), or
+runs its plain twin (CPU tensors). There is no fallback: a CUDA tensor
+reaches the kernel or an error.
 
 The Pallas-named helpers below the wrappers (`ccl_half_sweep_yz`, ...)
 compose the wrappers the way segmentation calls the TPU kernels.
@@ -31,79 +29,25 @@ compose the wrappers the way segmentation calls the TPU kernels.
 
 from __future__ import annotations
 
-import threading
-
 import torch
+
+from mamri_tpu_torch import _build
 
 BIG = 2**31 - 1  # background label sentinel
 
-LAUNCHES = {
-    "close_init": 0,
-    "reset_distances": 0,
-    "run_min": 0,
-    "check": 0,
-    "z_runs": 0,
-    "run_stats": 0,
-    "run_stats_compact": 0,
-    "scan_lines": 0,
-    "root_candidates": 0,
-    "component_stats_xyz": 0,
-    "component_stats_raster": 0,
-}
 ROOTS_MAX_K = 64  # csrc/roots.cu: the picks of a chunk of rows, and of a slab, are rows of k + 1 words
 ROOTS_LIST_CAP = 8192  # csrc/roots.cu: the roots a block lists in shared memory; a chunk holds at most this many cells
 STATS_MAX_ROOTS = 7168  # csrc/stats.cu: the roots a block ranks and keeps (20 B each) in shared memory
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    with _LAUNCHES_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
-    twin); anything else, or a mix of devices, is an error."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"tensors on different devices: {[str(t.device) for t in tensors]}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {dev}")
-
-
-def _check(t, name, dtype, shape=None):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _check_volume(t, name, dtype, tile=False):
-    _check(t, name, dtype)
+    _build.check(t, name, dtype)
     if t.dim() != 3 or min(t.shape) < 1:
         raise ValueError(f"{name}: expected a non-empty 3-D volume, got {tuple(t.shape)}")
     if max(t.shape) >= 32767:
         raise ValueError(f"{name}: int16 run lengths need every side < 32767, got {tuple(t.shape)}")
     if tile and (t.shape[0] % 8 or t.shape[1] % 8 or t.shape[2] % 128):
         raise ValueError(f"{name}: dims must be multiples of (8, 8, 128), got {tuple(t.shape)}")
-
-
-def _launch(name: str, entry: str, *args) -> None:
-    from mamri_tpu_torch import _build
-
-    lib = _build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
-    with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
 
 
 def new_flag(device):
@@ -127,13 +71,13 @@ def close_init(data, lo: float, hi: float, label_dims=None):
     if not (0 < lnx < 2**31 and 0 < lny < 2**31):
         raise ValueError(f"close_init: label_dims must be positive int32, got {label_dims}")
     lo, hi = float(torch.tensor(lo, dtype=torch.float32)), float(torch.tensor(hi, dtype=torch.float32))
-    if not _on_cuda(data):
+    if not _build.on_cuda(data):
         return close_init_plain(data, lo, hi, label_dims)
     band = torch.empty((nx, ny, -(-nz // 32)), dtype=torch.int32, device=data.device)  # z packed 32 a word
     mask = torch.empty(data.shape, dtype=torch.int8, device=data.device)
     lab = torch.empty(data.shape, dtype=torch.int32, device=data.device)
-    _launch(
-        "close_init", "mamri_close_init",
+    _build.launch(
+        "close_init", "mamri_close_init", data.device,
         data.data_ptr(), band.data_ptr(), mask.data_ptr(), lab.data_ptr(), nx, ny, nz, lo, hi, lnx, lny,
     )
     return mask, lab
@@ -186,12 +130,12 @@ def reset_distances(reset, axis: int):
     the last reset at or before each voxel (i + 1 where none) and to the next
     reset at or after it (n - i where none)."""
     _check_volume(reset, "reset_distances reset", torch.int8)
-    if not _on_cuda(reset):
+    if not _build.on_cuda(reset):
         return reset_distances_plain(reset, axis)
     df = torch.empty(reset.shape, dtype=torch.int16, device=reset.device)
     db = torch.empty(reset.shape, dtype=torch.int16, device=reset.device)
-    _launch(
-        "reset_distances", "mamri_reset_distances",
+    _build.launch(
+        "reset_distances", "mamri_reset_distances", reset.device,
         reset.data_ptr(), df.data_ptr(), db.data_ptr(), *reset.shape, axis,
     )
     return df, db
@@ -214,13 +158,13 @@ def run_min(lab, df, db, axis: int, changed):
     (bounded by df/db) gets the run's minimum label; ORs 1 into the int32
     `changed` flag if any label changed. Returns `lab`."""
     _check_volume(lab, "run_min lab", torch.int32)
-    _check(df, "run_min df", torch.int16, lab.shape)
-    _check(db, "run_min db", torch.int16, lab.shape)
-    _check(changed, "run_min changed", torch.int32, (1,))
-    if not _on_cuda(lab, df, db, changed):
+    _build.check(df, "run_min df", torch.int16, lab.shape)
+    _build.check(db, "run_min db", torch.int16, lab.shape)
+    _build.check(changed, "run_min changed", torch.int32, (1,))
+    if not _build.on_cuda(lab, df, db, changed):
         return run_min_plain(lab, df, db, axis, changed)
-    _launch(
-        "run_min", "mamri_run_min",
+    _build.launch(
+        "run_min", "mamri_run_min", lab.device,
         lab.data_ptr(), df.data_ptr(), db.data_ptr(), *lab.shape, axis, changed.data_ptr(),
     )
     return lab
@@ -246,11 +190,12 @@ def check(lab, df, axis: int, bad):
     """ORs 1 into the int32 `bad` flag iff some voxel with df >= 2 (its -axis
     neighbour in the same run) has a label different from that neighbour."""
     _check_volume(lab, "check lab", torch.int32)
-    _check(df, "check df", torch.int16, lab.shape)
-    _check(bad, "check bad", torch.int32, (1,))
-    if not _on_cuda(lab, df, bad):
+    _build.check(df, "check df", torch.int16, lab.shape)
+    _build.check(bad, "check bad", torch.int32, (1,))
+    if not _build.on_cuda(lab, df, bad):
         return check_plain(lab, df, axis, bad)
-    _launch("check", "mamri_check", lab.data_ptr(), df.data_ptr(), *lab.shape, axis, bad.data_ptr())
+    _build.launch("check", "mamri_check", lab.device, lab.data_ptr(), df.data_ptr(), *lab.shape, axis,
+                  bad.data_ptr())
     return bad
 
 
@@ -274,13 +219,13 @@ def z_runs(labels, dfz, dbz, nx: int, ny: int, k: int = 16, cand_k: int = 8, x_o
     line has fewer). Roots: the cand_k smallest of every (8 x, 128 y)-line
     block, and each block's root count, over runs of rank <= k."""
     _check_volume(labels, "z_runs labels", torch.int32, tile=True)
-    _check(dfz, "z_runs dfz", torch.int16, labels.shape)
-    _check(dbz, "z_runs dbz", torch.int16, labels.shape)
+    _build.check(dfz, "z_runs dfz", torch.int16, labels.shape)
+    _build.check(dbz, "z_runs dbz", torch.int16, labels.shape)
     if not 1 <= cand_k <= 8 * 128 * k:
         raise ValueError(f"cand_k must lie in [1, {8 * 128 * k}], got {cand_k}")
     nxp, nyp, nz = labels.shape
     nyq = -(-nyp // 128) * 128
-    if not _on_cuda(labels, dfz, dbz):
+    if not _build.on_cuda(labels, dfz, dbz):
         return z_runs_plain(labels, dfz, dbz, nx, ny, k, cand_k, x_off)
     dev = labels.device
     lab_t = torch.empty((nxp, k, nyq), dtype=torch.int32, device=dev)
@@ -289,8 +234,8 @@ def z_runs(labels, dfz, dbz, nx: int, ny: int, k: int = 16, cand_k: int = 8, x_o
     nblocks = (nxp // 8) * (nyq // 128)
     root_tab = torch.empty(nblocks * (cand_k + 1), dtype=torch.int32, device=dev)  # candidates, then counts
     totals = torch.zeros(2, dtype=torch.int32, device=dev)  # max runs per line, number of roots
-    _launch(
-        "z_runs", "mamri_z_runs",
+    _build.launch(
+        "z_runs", "mamri_z_runs", labels.device,
         labels.data_ptr(), dfz.data_ptr(), dbz.data_ptr(), lab_t.data_ptr(), z0_t.data_ptr(),
         len_t.data_ptr(), root_tab.data_ptr(), totals.data_ptr(),
         nxp, nyp, nz, nyq, k, cand_k, nx, ny, x_off,
@@ -339,14 +284,14 @@ def run_stats(run_lab, run_len, run_z0, roots, exact: bool = False):
     `exact=True` returns the int64 sums themselves (the sharded path adds
     shards' sums before it rounds); a repeated root reads the row of its
     first occurrence either way."""
-    _check(run_lab, "run_stats run_lab", torch.int32)
+    _build.check(run_lab, "run_stats run_lab", torch.int32)
     if run_lab.dim() != 3:
         raise ValueError(f"run_stats: expected (nxp, k, nyq) tables, got {tuple(run_lab.shape)}")
-    _check(run_len, "run_stats run_len", torch.int32, run_lab.shape)
-    _check(run_z0, "run_stats run_z0", torch.int32, run_lab.shape)
-    _check(roots, "run_stats roots", torch.int32)
+    _build.check(run_len, "run_stats run_len", torch.int32, run_lab.shape)
+    _build.check(run_z0, "run_stats run_z0", torch.int32, run_lab.shape)
+    _build.check(roots, "run_stats roots", torch.int32)
     _, k, nyq = run_lab.shape
-    if not _on_cuda(run_lab, run_len, run_z0, roots):
+    if not _build.on_cuda(run_lab, run_len, run_z0, roots):
         return run_stats_plain(run_lab, run_len, run_z0, roots, exact)
     return _run_stats_launch("run_stats", run_lab, run_len, run_z0, None, None, k * nyq, nyq, roots, exact)
 
@@ -356,9 +301,9 @@ def run_stats_compact(lab_c, len_c, z0_c, gi_c, gj_c, roots):
     come as data (`segmentation.compact_runs`)."""
     cols = {"lab_c": lab_c, "len_c": len_c, "z0_c": z0_c, "gi_c": gi_c, "gj_c": gj_c}
     for name, col in cols.items():
-        _check(col, f"run_stats_compact {name}", torch.int32, (lab_c.numel(),))
-    _check(roots, "run_stats_compact roots", torch.int32)
-    if not _on_cuda(*cols.values(), roots):
+        _build.check(col, f"run_stats_compact {name}", torch.int32, (lab_c.numel(),))
+    _build.check(roots, "run_stats_compact roots", torch.int32)
+    if not _build.on_cuda(*cols.values(), roots):
         return run_stats_compact_plain(lab_c, len_c, z0_c, gi_c, gj_c, roots)
     return _run_stats_launch("run_stats_compact", lab_c, len_c, z0_c, gi_c, gj_c, 1, 1, roots)
 
@@ -369,8 +314,8 @@ def _run_stats_launch(name, lab, ln, z0, gi, gj, kny, nyq, roots, exact=False):
         raise ValueError(f"{name}: needs at least one root and one run slot")
     acc = torch.empty(4 * r + 1, dtype=torch.int64, device=lab.device)  # sums and a ticket, cleared by the entry
     out = torch.empty((r, 4), dtype=torch.float32, device=lab.device)
-    _launch(
-        name, "mamri_run_stats",
+    _build.launch(
+        name, "mamri_run_stats", lab.device,
         lab.data_ptr(), ln.data_ptr(), z0.data_ptr(),
         None if gi is None else gi.data_ptr(), None if gj is None else gj.data_ptr(),
         lab.numel(), kny, nyq, roots.data_ptr(), r, acc.data_ptr(), out.data_ptr(),
@@ -411,14 +356,15 @@ def scan_lines(lab, reset):
     bidirectional segmented min along the last axis. A reset cell starts a
     segment and keeps its own value; every other cell gets the minimum over
     its segment, the reset cells bounding it included."""
-    _check(lab, "scan_lines lab", torch.int32)
+    _build.check(lab, "scan_lines lab", torch.int32)
     if lab.dim() != 2 or min(lab.shape) < 1:
         raise ValueError(f"scan_lines: expected a non-empty (L, N) array, got {tuple(lab.shape)}")
-    _check(reset, "scan_lines reset", torch.int32, lab.shape)
-    if not _on_cuda(lab, reset):
+    _build.check(reset, "scan_lines reset", torch.int32, lab.shape)
+    if not _build.on_cuda(lab, reset):
         return scan_lines_plain(lab, reset)
     out = torch.empty_like(lab)
-    _launch("scan_lines", "mamri_scan_lines", lab.data_ptr(), reset.data_ptr(), out.data_ptr(), *lab.shape)
+    _build.launch("scan_lines", "mamri_scan_lines", lab.device, lab.data_ptr(), reset.data_ptr(), out.data_ptr(),
+                  *lab.shape)
     return out
 
 
@@ -444,12 +390,12 @@ def root_candidates(labels, nx: int, ny: int, k: int = 8):
     the slab's k smallest roots ascending (BIG where it has fewer), then its
     exact root count (which may exceed k). A root is a voxel whose label is
     its own (z, y, x) raster index in the UNPADDED (nx, ny) grid."""
-    _check(labels, "root_candidates labels", torch.int32)
+    _build.check(labels, "root_candidates labels", torch.int32)
     if labels.dim() != 3 or min(labels.shape) < 1 or labels.shape[0] % 8:
         raise ValueError(f"root_candidates: expected (8*s, ny, nz) labels, got {tuple(labels.shape)}")
     if not 1 <= k <= ROOTS_MAX_K:
         raise ValueError(f"root_candidates: k must lie in [1, {ROOTS_MAX_K}], got {k}")
-    if not _on_cuda(labels):
+    if not _build.on_cuda(labels):
         return root_candidates_plain(labels, nx, ny, k)
     nxp, nyp, nzp = labels.shape
     slabs = nxp // 8
@@ -459,8 +405,8 @@ def root_candidates(labels, nx: int, ny: int, k: int = 8):
     # each chunk's picks and count, then a ticket a slab (cleared by the entry)
     scratch = torch.empty(slabs * chunks * (k + 1) + slabs if chunks > 1 else 1, dtype=torch.int32,
                           device=labels.device)
-    _launch("root_candidates", "mamri_root_candidates", labels.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            slabs, nyp, nzp, nx, ny, k, rows)
+    _build.launch("root_candidates", "mamri_root_candidates", labels.device, labels.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), slabs, nyp, nzp, nx, ny, k, rows)
     return out
 
 
@@ -483,8 +429,8 @@ def root_candidates_plain(labels, nx: int, ny: int, k: int = 8):
 
 # ------------------------------------------------------------ component_stats
 def _check_stats(name, flat_labels, roots):
-    _check(flat_labels, f"{name} flat_labels", torch.int32)
-    _check(roots, f"{name} roots", torch.int32)
+    _build.check(flat_labels, f"{name} flat_labels", torch.int32)
+    _build.check(roots, f"{name} roots", torch.int32)
     if flat_labels.dim() != 1 or roots.dim() != 1 or flat_labels.numel() < 1:
         raise ValueError(f"{name}: expected 1-D labels and roots, got {tuple(flat_labels.shape)}, "
                          f"{tuple(roots.shape)}")
@@ -500,7 +446,7 @@ def component_stats_xyz(flat_labels, roots, nx: int, ny: int, nz: int):
     background and a block-size-dependent padding, and every caller masks
     them (`root_valid`)."""
     _check_stats("component_stats_xyz", flat_labels, roots)
-    if not _on_cuda(flat_labels, roots):
+    if not _build.on_cuda(flat_labels, roots):
         return component_stats_xyz_plain(flat_labels, roots, nx, ny, nz)
     return _stats_launch("component_stats_xyz", flat_labels, roots, nx, ny, nz, 0)
 
@@ -508,7 +454,7 @@ def component_stats_xyz(flat_labels, roots, nx: int, ny: int, nz: int):
 def component_stats_raster(flat_labels, roots, nx: int, ny: int):
     """`component_stats_xyz` over labels flattened in (z, y, x) raster order."""
     _check_stats("component_stats_raster", flat_labels, roots)
-    if not _on_cuda(flat_labels, roots):
+    if not _build.on_cuda(flat_labels, roots):
         return component_stats_raster_plain(flat_labels, roots, nx, ny)
     return _stats_launch("component_stats_raster", flat_labels, roots, nx, ny, 1, 1)
 
@@ -518,8 +464,8 @@ def _stats_launch(name, flat, roots, nx, ny, nz, order):
     # (r, 4) int64 sums, a ticket and the r sorted roots (int32): all written by the entry and its kernels
     scratch = torch.empty(4 * r + 1 + (r + 1) // 2, dtype=torch.int64, device=flat.device)
     out = torch.empty((r, 4), dtype=torch.float32, device=flat.device)
-    _launch(name, "mamri_component_stats", flat.data_ptr(), flat.numel(), roots.data_ptr(),
-            r, nx, ny, nz, order, scratch.data_ptr(), out.data_ptr())
+    _build.launch(name, "mamri_component_stats", flat.device, flat.data_ptr(), flat.numel(), roots.data_ptr(),
+                  r, nx, ny, nz, order, scratch.data_ptr(), out.data_ptr())
     return out
 
 

@@ -17,7 +17,6 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from mamri_tpu_torch.core.robot import RobotModel, fk_all_links
 from mamri_tpu_torch.planning.geometry import (
@@ -105,7 +104,7 @@ def validate_path_exact(
     base = torch.as_tensor(np.asarray(base_tf, dtype=np.float32)).to(model.device)
 
     # FK of every sample in one batched call, then host point tests
-    tfs_all = vmap(lambda a: fk_all_links(model, a, base))(torch.as_tensor(path).to(model.device)).cpu().numpy()
+    tfs_all = fk_all_links(model, torch.as_tensor(path).to(model.device), base).cpu().numpy()
 
     flip = np.array([-1.0, -1.0, 1.0])
     hits = np.zeros(len(path), dtype=bool)

@@ -14,8 +14,8 @@ the host, which waits for the card, and the pose pipeline must queue its
 work without waiting (`MamriEngine.estimate_pose_async`). Its plain twin,
 `kabsch_rigid_transform_plain`, is the same fit in tensor ops through
 `_top_eigenvector`. There is no fallback: a CUDA tensor reaches the kernel
-or an error. `LAUNCHES` counts kernel launches; under a current tracer each
-launch adds one to the request's counter `registration.kabsch_fused`.
+or an error. A launch is counted in `_build.LAUNCHES["kabsch"]` and, under a
+current tracer, adds one to the request's counter `registration.kabsch_fused`.
 
 On the CPU nothing waits, and eigh is LAPACK's, as the reference's is on
 the CPU: an unconverged IK (10 iterations) turns the last-bit differences
@@ -26,13 +26,12 @@ reference's solver.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
 
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.core.transforms import homogeneous
-from mamri_tpu_torch.perception.gpu_ops import _check, _on_cuda
 from mamri_tpu_torch.utils.trace import current_count
 
 # the six (p, q) planes of a 4x4 in three rounds of two disjoint rotations;
@@ -40,15 +39,6 @@ from mamri_tpu_torch.utils.trace import current_count
 _JACOBI_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
 # quadratic convergence: 4x4 f32 matrices reach rounding in 4-5 sweeps
 _JACOBI_SWEEPS = 6
-
-LAUNCHES = {"kabsch": 0}
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def reset_launch_counts() -> None:
-    with _LAUNCHES_LOCK:
-        LAUNCHES["kabsch"] = 0
-
 
 @functools.lru_cache(maxsize=None)
 def _round_tables(dtype, device):
@@ -149,10 +139,10 @@ def _check_inputs(source, target) -> bool:
         raise ValueError(f"kabsch: expected (..., N, 3) source and target, got {tuple(source.shape)} and "
                          f"{tuple(target.shape)}")
     _leading_shape(source, target)  # raises ValueError where they do not broadcast
-    on_cuda = _on_cuda(source, target)
+    on_cuda = _build.on_cuda(source, target)
     if on_cuda:
-        _check(source, "kabsch source", torch.float32)
-        _check(target, "kabsch target", torch.float32)
+        _build.check(source, "kabsch source", torch.float32)
+        _build.check(target, "kabsch target", torch.float32)
     return on_cuda
 
 
@@ -163,19 +153,12 @@ def _leading_shape(source, target):
 
 
 def _launch(source, target):
-    from mamri_tpu_torch import _build
-
     lead = _leading_shape(source, target)
     n = source.shape[-2]
     source, target = (t if t.shape[:-2] == lead else t.expand(lead + (n, 3)).contiguous() for t in (source, target))
     out = torch.empty(lead + (4, 4), dtype=torch.float32, device=source.device)
-    lib = _build.library()
-    err = lib.mamri_kabsch(source.data_ptr(), target.data_ptr(), out.numel() // 16, n, out.data_ptr(),
-                           torch.cuda.current_stream(source.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"kabsch: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
-    with _LAUNCHES_LOCK:
-        LAUNCHES["kabsch"] += 1
+    _build.launch("kabsch", "mamri_kabsch", source.device, source.data_ptr(), target.data_ptr(), out.numel() // 16,
+                  n, out.data_ptr())
     current_count("registration.kabsch_fused")
     return out
 

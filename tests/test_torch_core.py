@@ -47,18 +47,31 @@ def test_zero_pose_link_heights(models):
     assert tfs[:, 2, 3].tolist() == [0.0, 20.0, 50.0, 200.0, 200.0, 355.0, 368.0, 439.0]
 
 
-def test_fk_matches_jax_for_random_angles(models):
+@pytest.mark.parametrize("batch", [None, "angles", "angles_and_base"])
+def test_fk_matches_jax_for_random_angles(models, batch):
+    """Pose by pose; or (G, J) angles in one call, from one base or from a
+    (G, 4, 4) batch of them, against the reference's FK row by row."""
     jm, tm = models
     rng = np.random.default_rng(0)
     limits = np.asarray(jm.limits_rad)
     base = (
         np.asarray(jT.translate(jnp.asarray([-60.0, -120.0, 5.0])) @ jT.rot_x(-np.pi / 2) @ jT.rot_z(0.3))
     ).astype(np.float32)
-    for _ in range(8):
-        a = rng.uniform(limits[:, 0], limits[:, 1]).astype(np.float32)
-        want = np.asarray(jrobot.fk_all_links(jm, jnp.asarray(a), jnp.asarray(base)))
+    angles = rng.uniform(limits[:, 0], limits[:, 1], (8, len(limits))).astype(np.float32)
+    bases = np.stack([base] * 8)
+    if batch == "angles_and_base":
+        bases = np.stack([np.asarray(jT.rot_z(0.2 * g) @ jnp.asarray(base)) for g in range(8)]).astype(np.float32)
+    want = np.stack([np.asarray(jrobot.fk_all_links(jm, jnp.asarray(a), jnp.asarray(b)))
+                     for a, b in zip(angles, bases)])
+    if batch is not None:
+        got_base = bases if batch == "angles_and_base" else base
+        got = trobot.fk_all_links(tm, torch.as_tensor(angles), torch.as_tensor(got_base))
+        assert got.shape == want.shape == (8, tm.num_links, 4, 4)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)  # mm and unitless rotation entries
+        return
+    for a, w in zip(angles, want):
         got = trobot.fk_all_links(tm, torch.as_tensor(a), torch.as_tensor(base)).numpy()
-        np.testing.assert_allclose(got, want, atol=1e-4)  # mm and unitless rotation entries
+        np.testing.assert_allclose(got, w, atol=1e-4)
         for ln in ("Baseplate", "Joint2", "Joint4", "Joint6"):
             want_m = np.asarray(jrobot.marker_world_positions(jm, jnp.asarray(a), ln, jnp.asarray(base)))
             got_m = trobot.marker_world_positions(tm, torch.as_tensor(a), ln, torch.as_tensor(base)).numpy()

@@ -12,11 +12,17 @@ import pytest
 import torch
 
 from kabsch_cases import KABSCH_CASES
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.perception import gpu_ops as G
 from mamri_tpu_torch.perception import segmentation as S
 from mamri_tpu_torch.perception.volume import synthetic_volume
 
 pytestmark = pytest.mark.cuda
+
+# every segmentation wrapper's launch counter, all exercised by test_kernels_equal_their_twins
+SEGMENTATION_KERNELS = ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats",
+                        "run_stats_compact", "scan_lines", "root_candidates", "component_stats_xyz",
+                        "component_stats_raster")
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +56,7 @@ def _same(a, b):
 def test_kernels_equal_their_twins(cuda, shape):
     data = torch.as_tensor(_volume(shape, seed=shape[0])).to(cuda)
     nx, ny, _ = shape
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     mask, lab0 = G.close_init(data, 65.0, 65535.0)
     _same((mask, lab0), G.close_init_plain(data, 65.0, 65535.0))
     lab0, reset = S._pad_for_kernels(lab0, (mask == 0).to(torch.int8))
@@ -98,7 +104,7 @@ def test_kernels_equal_their_twins(cuda, shape):
     _same(G.component_stats_xyz(flat, repeated, *shape), G.component_stats_xyz_plain(flat, repeated, *shape))
     raster = lab_c.permute(2, 1, 0).contiguous().reshape(-1)
     _same(G.component_stats_raster(raster, repeated, nx, ny), G.component_stats_raster_plain(raster, repeated, nx, ny))
-    assert all(n > 0 for n in G.LAUNCHES.values()), G.LAUNCHES
+    assert all(_build.LAUNCHES[n] > 0 for n in SEGMENTATION_KERNELS), _build.LAUNCHES
 
 
 # z lengths on both sides of close_init's 32-voxel words
@@ -252,9 +258,9 @@ def test_z_runs_equals_twin(cuda, shape, k, cand_k, x_off, converge):
     if converge:
         lab, _ = S._ccl_sweeps_from_dists(lab, dists, max_sweeps=64)
     args = (lab, dists[4], dists[5], gx, ny, k, cand_k, x_off)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     got = G.z_runs(*args)
-    assert G.LAUNCHES["z_runs"] == 1
+    assert _build.LAUNCHES["z_runs"] == 1
     _same(got, G.z_runs_plain(*args))
 
 
@@ -294,10 +300,10 @@ def _root_labels(case, seed=0):
 def test_root_candidates_equals_twin(cuda, case, k):
     lab, nx, ny = _root_labels(case, seed=k)
     lab = torch.as_tensor(lab).to(cuda)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     for _ in range(2):  # and again: the tickets are cleared for every call
         _same(G.root_candidates(lab, nx, ny, k), G.root_candidates_plain(lab, nx, ny, k))
-    assert G.LAUNCHES["root_candidates"] == 2
+    assert _build.LAUNCHES["root_candidates"] == 2
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -355,10 +361,10 @@ def test_component_stats_equals_twin(cuda, order, line, num_roots):
     pool, roots = _stats_roots(num_roots, seed=line + num_roots)
     flat = torch.as_tensor(_stretch_labels(int(np.prod(shape)), pool, seed=line)).to(cuda)
     roots = torch.as_tensor(roots).to(cuda)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     got, want = _component_stats_pair(order, flat, roots, shape)
     _same(got, want)
-    assert G.LAUNCHES[f"component_stats_{order}"] == 1
+    assert _build.LAUNCHES[f"component_stats_{order}"] == 1
     assert float(got[:, 0].max()) > 0
     assert torch.equal(got[-1], got[0])  # the repeated root
 
@@ -431,7 +437,7 @@ def test_run_stats_equals_twin(cuda, k, num_roots, kind):
     """Dense tables at both run depths, compacted ones at both caps; roots
     kept in shared memory (<= 4096) and searched in global memory (6000)."""
     lab, lens, z0, roots = (torch.as_tensor(a).to(cuda) for a in _run_tables((40, k, 256), num_roots, kind, seed=k + num_roots))
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     for _ in range(2):  # and again: nothing is left of the first call
         _same(G.run_stats(lab, lens, z0, roots), G.run_stats_plain(lab, lens, z0, roots))
     for cap in (32768, 131072):
@@ -440,7 +446,7 @@ def test_run_stats_equals_twin(cuda, k, num_roots, kind):
         _same(G.run_stats_compact(*cols, roots), G.run_stats_compact_plain(*cols, roots))
     odd = [c[1:] for c in cols]  # columns that start off a 16-byte boundary
     _same(G.run_stats_compact(*odd, roots), G.run_stats_compact_plain(*odd, roots))
-    assert G.LAUNCHES["run_stats"] == 2 and G.LAUNCHES["run_stats_compact"] == 3
+    assert _build.LAUNCHES["run_stats"] == 2 and _build.LAUNCHES["run_stats_compact"] == 3
 
 
 def test_stats_large_sums_and_many_roots(cuda):
@@ -464,12 +470,12 @@ def test_nonfused_segment_volume_cuda_equals_cpu(cuda):
     data = _volume((80, 80, 80), seed=6)
     params = S.SegmentationParams(closing_radius=1, max_sweeps=2, passes=3, max_roots=128)
     spacing, origin = np.ones(3, np.float32), np.zeros(3, np.float32)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     on_card = S.segment_volume(torch.as_tensor(data).to(cuda), spacing, origin, params)
     on_cpu = S.segment_volume(torch.as_tensor(data), spacing, origin, params)
     for name, a, b in zip(on_cpu._fields, on_card, on_cpu):
         assert torch.equal(a.cpu(), b), name
-    assert G.LAUNCHES["component_stats_xyz"] == 1 and G.LAUNCHES["close_init"] == 0
+    assert _build.LAUNCHES["component_stats_xyz"] == 1 and _build.LAUNCHES["close_init"] == 0
 
 
 def test_segment_volume_cuda_equals_cpu(cuda):
@@ -571,11 +577,11 @@ def test_sharded_segmentation_on_the_card_equals_segment_volume(cuda, n_sp, radi
     data = torch.as_tensor(_volume((64, 64, 64), seed=9)).to(cuda)
     params = S.SegmentationParams(max_sweeps=2, passes=5, max_roots=128, closing_radius=radius)
     want = S.segment_volume(data, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0), params)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     got = segment_volume_threads(data, (1.0, 1.0, 1.0), (0.0, 0.0, 0.0), params, devices=[cuda] * n_sp, timeout=120)
     for f in want._fields:
         _same(getattr(got, f), getattr(want, f))
-    assert G.LAUNCHES["close_init" if radius == 2 else "scan_lines"] >= n_sp
+    assert _build.LAUNCHES["close_init" if radius == 2 else "scan_lines"] >= n_sp
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
@@ -643,9 +649,9 @@ def _lm_solves(model, kw, num_iters):
     launched once for the one solve."""
     from mamri_tpu_torch.ik import fused_lm
 
-    before = fused_lm.LAUNCHES["full_chain_lm"]
+    before = _build.LAUNCHES["full_chain_lm"]
     got = fused_lm.full_chain_lm(model, num_iters=num_iters, **kw)
-    assert fused_lm.LAUNCHES["full_chain_lm"] == before + 1
+    assert _build.LAUNCHES["full_chain_lm"] == before + 1
     want = fused_lm.full_chain_lm_plain(model, num_iters=num_iters, **kw)
     torch.cuda.synchronize()
     return got, want
@@ -733,12 +739,12 @@ def test_full_chain_lm_launches_once_a_solve(cuda, monkeypatch):
 
     monkeypatch.setattr(fused_lm, "full_chain_lm_plain", refuse)
     model, kw = lm_scene(5, 12, False, True, cuda)
-    fused_lm.reset_launch_counts()
+    _build.reset_launch_counts()
     for _ in range(3):
         solve_full_chain_ik(model, kw["joint6_targets"], kw["base_tf"], joint4_targets=kw["joint4_targets"],
                             joint4_found=kw["joint4_found"], num_iters=24, num_random_restarts=2)
     torch.cuda.synchronize()
-    assert fused_lm.LAUNCHES == {"full_chain_lm": 3}
+    assert _build.LAUNCHES["full_chain_lm"] == 3
 
 
 # ------------------------------------------------------------ the Kabsch fit (csrc/kabsch.cu)
@@ -751,9 +757,9 @@ def test_kabsch_equals_twin(cuda, case):
     from mamri_tpu_torch.registration import kabsch
 
     src, tgt = (t.to(cuda) for t in kabsch_case(case))
-    before = kabsch.LAUNCHES["kabsch"]
+    before = _build.LAUNCHES["kabsch"]
     got = kabsch.kabsch_rigid_transform(src, tgt)
-    assert kabsch.LAUNCHES["kabsch"] == before + 1
+    assert _build.LAUNCHES["kabsch"] == before + 1
     want = kabsch.kabsch_rigid_transform_plain(src, tgt)
     torch.cuda.synchronize()
     assert_same_fit(got, want, 2e-6, 1e-4)
@@ -775,10 +781,10 @@ def test_kabsch_rejects(cuda, bad):
         "not_contiguous": (src, torch.cat([tgt, tgt], -1)[..., ::2]),
         "last_dim": (torch.cat([src, src[..., :1]], -1), torch.cat([tgt, tgt[..., :1]], -1)),
     }[bad]
-    before = kabsch.LAUNCHES["kabsch"]
+    before = _build.LAUNCHES["kabsch"]
     with pytest.raises((ValueError, TypeError)):
         kabsch.kabsch_rigid_transform(src, tgt)
-    assert kabsch.LAUNCHES["kabsch"] == before
+    assert _build.LAUNCHES["kabsch"] == before
 
 
 def test_kabsch_launches_twice_a_pose(cuda, monkeypatch):
@@ -800,7 +806,7 @@ def test_kabsch_launches_twice_a_pose(cuda, monkeypatch):
     assert eng.estimate_pose(vol).success
     monkeypatch.setattr(kabsch, "_top_eigenvector", refuse)
     eng.tracer.reset()
-    kabsch.reset_launch_counts()
+    _build.reset_launch_counts()
     assert eng.estimate_pose(vol).success
     assert eng.tracer.counters["pose.attempts"] == 1
-    assert kabsch.LAUNCHES == {"kabsch": 2} and eng.tracer.counters["registration.kabsch_fused"] == 2
+    assert _build.LAUNCHES["kabsch"] == 2 and eng.tracer.counters["registration.kabsch_fused"] == 2

@@ -12,6 +12,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from lm_cases import assert_same_answer, assert_same_in_basin, lm_scene
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.ik import fused_lm
 from mamri_tpu_torch.ik.lm import least_squares_lm
 from mamri_tpu_torch.ik.residuals import full_chain_residual
@@ -47,6 +48,18 @@ def test_jacobian_matches_jacfwd(apply_correction, joint4_found):
     assert (jac - want).abs().max() <= 1e-5 * want.abs().max()
     if joint4_found is not True:
         assert not jac[:, 9:].any()  # the Joint4 block weighs nothing
+
+
+@pytest.mark.parametrize("apply_correction,joint4_found", FLAGS)
+def test_residual_is_the_jacobians_rows(apply_correction, joint4_found):
+    """`full_chain_residual` of a (G, J) batch is `full_chain_jacobian`'s r,
+    bit for bit: the 18 rows are coded once."""
+    model, kw = lm_scene(3, 16, apply_correction, joint4_found, "cpu")
+    args = (model, kw["guesses"], kw["base_tf"], kw["joint6_targets"], kw["apply_correction"],
+            kw.get("joint4_targets"), kw.get("joint4_found"))
+    got = full_chain_residual(*args)
+    assert got.shape == (16, 18)
+    assert torch.equal(got, fused_lm.full_chain_jacobian(*args)[0])
 
 
 def _flat_residual(model, kw):
@@ -138,9 +151,9 @@ def test_wrapper_rejects(bad):
 
 def test_cpu_tensors_take_the_twin():
     model, kw = lm_scene(2, 5, True, True, "cpu")
-    fused_lm.reset_launch_counts()
+    _build.reset_launch_counts()
     got = fused_lm.full_chain_lm(model, num_iters=4, **kw)
     want = fused_lm.full_chain_lm_plain(model, num_iters=4, **kw)
-    assert fused_lm.LAUNCHES == {"full_chain_lm": 0}
+    assert not any(_build.LAUNCHES.values())
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

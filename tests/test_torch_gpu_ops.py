@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from mamri_tpu.perception import pallas_ops as P
 from mamri_tpu.perception import segmentation as jseg
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.perception import gpu_ops as G
 from mamri_tpu_torch.perception import segmentation as tseg
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
@@ -421,8 +422,8 @@ def test_wrappers_check_their_inputs():
 
 
 def test_cpu_tensors_never_launch():
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     mask = _blob_mask(TILE, 10)
     data = np.where(mask, 100.0, 10.0).astype(np.float32)
     tseg.segment_volume(_t(data), np.ones(3, np.float32), np.zeros(3, np.float32))
-    assert all(v == 0 for v in G.LAUNCHES.values()), G.LAUNCHES
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES

@@ -29,7 +29,6 @@ from mamri_tpu.parallel import sharded_batched_pipeline as j_pipeline
 from mamri_tpu.perception.segmentation import SegmentationParams as JaxSegParams
 from mamri_tpu_torch.api.engine import MamriEngine
 from mamri_tpu_torch.parallel import collectives, dryrun, make_mesh, run_sharded_batched, sharded_batched_pipeline
-from mamri_tpu_torch.perception import gpu_ops
 from mamri_tpu_torch.perception.segmentation import SegmentationParams
 from test_parallel import _lattice_clutter
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
@@ -282,11 +281,11 @@ def test_launch_counts_are_exact_across_threads(monkeypatch):
 
     monkeypatch.setattr(_build, "library", lambda: _Lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream)
-    before = gpu_ops.LAUNCHES["scan_lines"]
+    before = _build.LAUNCHES["scan_lines"]
 
     def hammer():
         for _ in range(2000):
-            gpu_ops._launch("scan_lines", "mamri_noop")
+            _build.launch("scan_lines", "mamri_noop", None)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)  # switch threads often: a lost update would show
@@ -299,8 +298,8 @@ def test_launch_counts_are_exact_across_threads(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert gpu_ops.LAUNCHES["scan_lines"] - before == 32000
-    gpu_ops.LAUNCHES["scan_lines"] = before
+    assert _build.LAUNCHES["scan_lines"] - before == 32000
+    _build.LAUNCHES["scan_lines"] = before
 
 
 def test_kernels_built_before_shard_threads(monkeypatch):

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 
 from mamri_tpu.perception import segmentation as jseg
 from mamri_tpu.perception.volume import synthetic_volume
-from mamri_tpu_torch.perception import gpu_ops as G
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.perception import segmentation as tseg
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
@@ -57,7 +57,7 @@ def test_nonfused_segment_volume_matches_jax_kernels(shape, radius):
     data, spacing, origin = _volume(shape, seed=shape[0] + radius)
     kw = dict(closing_radius=radius, max_sweeps=2, passes=3, max_roots=128)
     jres = jseg.segment_volume(jnp.asarray(data), spacing, origin, jseg.SegmentationParams(use_pallas=True, **kw))
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     tres = tseg.segment_volume(torch.as_tensor(data), spacing, origin, tseg.SegmentationParams(**kw))
     for name in CERTS + ("body_found",):
         assert bool(getattr(tres, name)) == bool(getattr(jres, name)), name
@@ -67,7 +67,7 @@ def test_nonfused_segment_volume_matches_jax_kernels(shape, radius):
         np.testing.assert_array_equal(getattr(tres, name).numpy(), np.asarray(getattr(jres, name)), err_msg=name)
     np.testing.assert_allclose(tres.centroids_ras.numpy(), np.asarray(jres.centroids_ras), atol=1e-4)
     assert int(tres.num_blobs) >= 4
-    assert all(v == 0 for v in G.LAUNCHES.values())  # CPU tensors run the twins
+    assert all(v == 0 for v in _build.LAUNCHES.values())  # CPU tensors run the twins
 
 
 def _overflowing_labels():

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from mamri_tpu.perception import pallas_ops as P
 from mamri_tpu.perception import segmentation as jseg
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.perception import gpu_ops as G
 from test_torch_engine import _one_torch_thread  # noqa: F401 (autouse)
 
@@ -285,7 +286,7 @@ def test_new_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="roots"):
         G.component_stats_xyz(torch.zeros(64, dtype=torch.int32),
                               torch.zeros(G.STATS_MAX_ROOTS + 1, dtype=torch.int32), 4, 4, 4)
-    G.reset_launch_counts()
+    _build.reset_launch_counts()
     G.scan_lines(torch.zeros((4, 4), dtype=torch.int32), torch.ones((4, 4), dtype=torch.int32))
     G.component_stats_raster(torch.zeros(64, dtype=torch.int32), torch.zeros(2, dtype=torch.int32), 4, 4)
-    assert all(v == 0 for v in G.LAUNCHES.values()), G.LAUNCHES
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
