@@ -54,7 +54,13 @@
    Kabsch kernel (`csrc/kabsch.cu`): one warm call launches it twice an
    attempt (baseplate, Joint6 frame), the kernel equals its twin on the
    scene's fits, and the baseplate's fit is timed beside its twin and the
-   launch floor (`kabsch=` and the JSON line's `kabsch`).
+   launch floor (`kabsch=` and the JSON line's `kabsch`). Then the pose
+   pipeline's CUDA graphs (`api/engine._StageGraphs`; every call above
+   after the second replays them): one more replayed call under a tracer
+   equals, bit for bit, an engine's eager pose of the same scan (angles,
+   steps, RMSE, base, markers, body mask, every certificate), replays its
+   3 stages and captures and runs none eagerly, and adds to the launch
+   counts exactly what the eager call launched (`graph replay 256^3:`).
 4. Escalated paths: a speckle scene must escalate through the compact
    run-stats kernel; a starved sweep budget (even half-sweep count) must
    converge through the three-axis fixed-point check.
@@ -859,6 +865,58 @@ def check_kabsch(engine, vol, base, card, floor):
     }
     print(f"kabsch={json.dumps(out)} ({card})")
     return out
+
+
+def check_replay(engine, vol):
+    """A replayed `estimate_pose` of `vol` on `engine` (warm: its pipeline
+    captured) against an engine that runs every pipeline eagerly on the
+    card: the same pose bit for bit, the body mask and every certificate
+    included; 3 stages replayed and none captured or eager; the same
+    kernel launches counted."""
+    from mamri_tpu_torch import _build
+    from mamri_tpu_torch.api import engine as E
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    def launched(fn):
+        before = dict(_build.LAUNCHES)
+        res = fn()
+        return res, {k: n - before[k] for k, n in _build.LAUNCHES.items() if n != before[k]}
+
+    def answer(eng, res):
+        seg = eng.last_segmentation
+        return {"angles": res.angles_rad, "steps": res.steps, "rmse": np.float32(res.rmse_mm),
+                "base_tf": res.baseplate_tf, "markers": np.array(list(res.markers_found.values())),
+                "body_mask": seg["body_mask"], **{c: np.asarray(seg[c]) for c in E._CERTIFICATES}}
+
+    graphs_run_on = E._graphs_run_on
+    E._graphs_run_on = lambda device: False
+    try:
+        eager = E.MamriEngine(device="cuda")
+        eager.estimate_pose(vol)
+        eager.current_angles = np.zeros(6, np.float32)
+        want, eager_launches = launched(lambda: eager.estimate_pose(vol))
+    finally:
+        E._graphs_run_on = graphs_run_on
+    kept = engine.tracer
+    engine.tracer = Tracer()
+    try:
+        engine.current_angles = np.zeros(6, np.float32)
+        got, replay_launches = launched(lambda: engine.estimate_pose(vol))
+        counts = {c: engine.tracer.counters.get(c, 0)
+                  for c in ("pose.eager_stages", "pose.graph_captures", "pose.graph_replays")}
+    finally:
+        engine.tracer = kept
+    check_pose(engine, got, TRUE_ANGLES, "graph replay 256^3")
+    a, b = answer(engine, got), answer(eager, want)
+    differ = [k for k in b if not np.array_equal(a[k], b[k])]
+    print(f"graph replay 256^3: {json.dumps(counts)}; launches replayed {json.dumps(replay_launches)}, eager "
+          f"{json.dumps(eager_launches)}; fields differing from the eager pose: {differ}")
+    if differ:
+        raise AssertionError(f"graph replay: the replayed pose differs from the eager one in {differ}")
+    if counts != {"pose.eager_stages": 0, "pose.graph_captures": 0, "pose.graph_replays": 3}:
+        raise AssertionError(f"graph replay: the call did not replay its 3 stages alone: {counts}")
+    if replay_launches != eager_launches:
+        raise AssertionError(f"graph replay: launches {replay_launches} against the eager call's {eager_launches}")
 
 
 def cold_warm(engine, vol, label, card):
@@ -2585,6 +2643,7 @@ def main() -> int:
     report_host_syncs(engine, vol256)
     lm_timing = check_fused_lm(engine, vol256, base256, card, floor)
     kabsch_timing = check_kabsch(engine, vol256, base256, card, floor)
+    check_replay(engine, vol256)
 
     log = logging.getLogger("mamri_tpu_torch.api.engine")
     esc = _Escalations()

@@ -14,11 +14,16 @@ the kernel or the plain twin from the tensors' device, `check` holds a
 tensor to what a C entry reads, and `launch` calls an entry on the current
 stream of the inputs' device, raises on a CUDA error and adds one to the
 kernel's count in `LAUNCHES`. The counts are taken under a lock, since the
-shards of `parallel.shard_seg` launch from threads of their own.
+shards of `parallel.shard_seg` launch from threads of their own. Under a
+CUDA graph capture a launch is queued into the graph and runs only when the
+graph is replayed: `launches_recorded` collects the capture's launches apart
+from `LAUNCHES`, and each replay adds them (`add_launches`), so the counts
+stay those of launches that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import glob
@@ -28,6 +33,8 @@ import shutil
 import subprocess
 import threading
 import time
+from contextvars import ContextVar
+from typing import Dict, Optional
 
 import torch
 
@@ -64,6 +71,8 @@ LAUNCHES = dict.fromkeys(
     ("close_init", "reset_distances", "run_min", "check", "z_runs", "run_stats", "run_stats_compact", "scan_lines",
      "root_candidates", "component_stats_xyz", "component_stats_raster", "full_chain_lm", "kabsch"), 0)
 _LAUNCHES_LOCK = threading.Lock()
+# the launches of the capture open in this thread, if one is
+_RECORDED: ContextVar[Optional[Dict[str, int]]] = ContextVar("mamri_tpu_torch_recorded_launches", default=None)
 
 # what the last build in this process took and printed (read by chip_smoke.py)
 last_build = {"seconds": 0.0, "log": "", "path": ""}
@@ -149,6 +158,26 @@ def reset_launch_counts() -> None:
             LAUNCHES[name] = 0
 
 
+@contextlib.contextmanager
+def launches_recorded():
+    """Within the block, a launch of this thread adds one to its name in the
+    dict this yields and not to `LAUNCHES` (a graph capture's launches)."""
+    recorded: Dict[str, int] = {}
+    token = _RECORDED.set(recorded)
+    try:
+        yield recorded
+    finally:
+        _RECORDED.reset(token)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` ({name: launches}) to `LAUNCHES`: a replay of the graph
+    whose capture recorded them."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
 def on_cuda(*tensors) -> bool:
     """True for CUDA tensors (launch the kernel), False for CPU tensors (the
     twin); anything else, or a mix of devices, is an error."""
@@ -180,5 +209,9 @@ def launch(name: str, entry: str, device, *args) -> None:
     err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.mamri_error_string(err).decode()})")
+    recorded = _RECORDED.get()
+    if recorded is not None:
+        recorded[name] = recorded.get(name, 0) + 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1

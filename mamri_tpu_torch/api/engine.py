@@ -7,8 +7,11 @@ Port of `mamri_tpu/api/engine.py` (`_LRUCache`, `MamriEngine`,
 spans and, inside the scan -> pose path, the port's own (`estimate_pose`).
 The per-volume program (segmentation -> triplet matching in the
 `best`, `strict` or `global` mode -> baseplate fit -> full-chain IK -> motor
-steps) runs eagerly on the engine's device, cached per (shape, params) as
-the reference caches its jitted programs; the host reads the certificates
+steps) is three stages on the engine's device, cached per (shape, params)
+as the reference caches its jitted programs; on a card `estimate_pose`
+replays each stage as a CUDA graph from a key's second call (one host
+launch a stage in place of hundreds of small ops), and everything else
+runs the stages eagerly; the host reads the certificates
 and results with one synchronization per attempt (`_fetch`) and escalates
 the segmentation budgets exactly as the reference does. A batch is a loop of
 that program over its volumes on one stream, fetched once per batch (and
@@ -22,6 +25,8 @@ use the host FK and never touch the device.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import logging
 import math
@@ -29,16 +34,17 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mamri_tpu_torch import _build
 from mamri_tpu_torch.api.types import ActionState, PoseEstimate, TrajectoryPlan
 from mamri_tpu_torch.core import transforms
 from mamri_tpu_torch.core.robot import RobotModel, fk_all_links, fk_all_links_host, load_robot_model
 from mamri_tpu_torch.core.units import angles_to_steps, angles_to_steps_host, steps_to_angles_host
-from mamri_tpu_torch.ik.residuals import solve_full_chain_ik
+from mamri_tpu_torch.ik.residuals import random_restart_guesses, solve_full_chain_ik
 from mamri_tpu_torch.perception.segmentation import SegmentationParams, segment_volume
 from mamri_tpu_torch.perception.volume import Volume
 from mamri_tpu_torch.planning.collision import build_collision_world
@@ -48,7 +54,7 @@ from mamri_tpu_torch.planning.heuristic import check_path_collisions, heuristic_
 from mamri_tpu_torch.planning.trajectory import TrajectoryIKResult, solve_trajectory_ik
 from mamri_tpu_torch.registration.kabsch import kabsch_rigid_transform
 from mamri_tpu_torch.registration.lshape import match_l_shaped_triplets, match_l_shaped_triplets_global
-from mamri_tpu_torch.utils.trace import Tracer, current_count, current_span
+from mamri_tpu_torch.utils.trace import Tracer, counts_recorded, current_count, current_span
 
 logger = logging.getLogger(__name__)
 
@@ -119,6 +125,163 @@ class _LRUCache:
             self._d.clear()
 
 
+# the per-volume program's arguments, in the order a pipeline takes them
+PIPELINE_ARGS = (
+    "data", "spacing", "origin", "saved_tf", "use_saved", "have_saved", "apply_correction", "current_angles",
+)
+# one CUDA graph capture at a time in a process (torch.cuda.graph's rule)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _Stage(NamedTuple):
+    span: Optional[str]  # the tracer span around the stage; None: the root's own time
+    run: Callable[[dict], dict]  # {name: tensor so far} -> the stage's new {name: tensor or tuple of them}
+
+
+def _stage_span(stage: _Stage):
+    return current_span(stage.span) if stage.span is not None else contextlib.nullcontext()
+
+
+def _run_stages(stages: Tuple[_Stage, ...], outputs: Callable[[dict], dict], args: tuple) -> dict:
+    """The stages run eagerly on `args` (`PIPELINE_ARGS`), each in its span."""
+    env = dict(zip(PIPELINE_ARGS, args))
+    for stage in stages:
+        with _stage_span(stage):
+            env.update(stage.run(env))
+    return outputs(env)
+
+
+class _Pipeline:
+    """The per-volume program of one (shape, params) as its stages, each a
+    function of the tensors the stages before it made, and `outputs`, which
+    picks the result dict from them and computes nothing. Called with
+    `PIPELINE_ARGS` it runs the stages eagerly, each in its span; that is
+    the only code of the program, which `_StageGraphs` captures stage by
+    stage. A cached pipeline keeps its graph dispatch per scan dtype, so an
+    evicted entry frees its graphs and their memory pool (no reference
+    cycle holds them for the garbage collector)."""
+
+    def __init__(self, stages: Tuple[_Stage, ...], outputs: Callable[[dict], dict]):
+        self.stages, self.outputs = stages, outputs
+        self._graphs: Dict[torch.dtype, "_StageGraphs"] = {}
+        self._graphs_lock = threading.Lock()
+
+    def __call__(self, *args) -> dict:
+        return _run_stages(self.stages, self.outputs, args)
+
+    def stage_graphs(self, dtype: torch.dtype) -> "_StageGraphs":
+        with self._graphs_lock:
+            if dtype not in self._graphs:
+                self._graphs[dtype] = _StageGraphs(self.stages, self.outputs)
+            return self._graphs[dtype]
+
+
+def _graphs_run_on(device: torch.device) -> bool:
+    """Whether `estimate_pose` dispatches its pipelines as CUDA graphs on
+    `device`: on a card; the CPU runs them eagerly."""
+    return device.type == "cuda"
+
+
+class _CudaStageGraph:
+    """One stage captured as a `torch.cuda.CUDAGraph` whose memory comes
+    from `pool`: `out` holds the stage's outputs, which each `replay` (on the
+    current stream) writes anew from the tensors the capture read."""
+
+    @staticmethod
+    def new_pool():
+        return torch.cuda.graph_pool_handle()
+
+    def __init__(self, run: Callable[[dict], dict], env: dict, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            self.out = run(env)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _StageGraphs:
+    """`estimate_pose`'s dispatch of one cached pipeline for one scan dtype
+    on a card. The first call runs the stages eagerly (the warm-up a
+    capture needs: every table and workspace made, in the capturing thread
+    too, which runs them eagerly first where it has not); the second captures
+    each stage as one graph (`_CudaStageGraph`), all in one memory pool, each
+    reading the static outputs of the one before, with clones of that
+    call's arguments as the static inputs; every call from then on finds
+    its scan uploaded into `inputs` (or copies its arguments there) and
+    replays the graphs in order, each in its stage's span. A graph runs the
+    kernels its capture queued, so the answers are those of the eager
+    stages. The caller holds `lock` from the copy-in until its last fetch of
+    the outputs, which the next replay overwrites.
+
+    Counters of the request (`current_count`): `pose.eager_stages` per stage
+    run eagerly, `pose.graph_captures` per stage captured,
+    `pose.graph_replays` per stage replayed. A replay also adds what its
+    capture recorded of `_build.LAUNCHES` and of the tracer's counters
+    (`ik.lm.fused_solves`, `registration.kabsch_fused`): launches that ran."""
+
+    def __init__(self, stages: Tuple[_Stage, ...], outputs: Callable[[dict], dict]):
+        self.stages, self.outputs = stages, outputs
+        self.lock = threading.Lock()
+        self.calls = 0
+        self.inputs: Optional[tuple] = None  # the static inputs, once captured
+        self._env: Optional[dict] = None  # every static tensor, by name
+        self._graphs: tuple = ()  # (graph, launches, counts) per stage
+        self._ran = threading.local()  # `done` in each thread that has run the stages eagerly
+
+    def _run_eagerly(self, args: tuple) -> dict:
+        current_count("pose.eager_stages", len(self.stages))
+        self._ran.done = True
+        return _run_stages(self.stages, self.outputs, args)
+
+    def run(self, args: tuple) -> dict:
+        """The pipeline's outputs for `args` (`PIPELINE_ARGS` on the card),
+        with `lock` held."""
+        if self.inputs is None:
+            self.calls += 1
+            if self.calls == 1:
+                return self._run_eagerly(args)
+            if not getattr(self._ran, "done", False):
+                # what the stages make lazily per thread (cuBLAS handles and
+                # workspaces) cannot be made inside a capture
+                self._run_eagerly(args)
+            self._capture(args)
+        elif args is not self.inputs:
+            for static, arg in zip(self.inputs, args):
+                static.copy_(arg)
+        for stage, (graph, launches, counts) in zip(self.stages, self._graphs):
+            with _stage_span(stage):
+                graph.replay()
+            _build.add_launches(launches)
+            for name, n in counts.items():
+                current_count(name, n)
+            current_count("pose.graph_replays")
+        return self.outputs(self._env)
+
+    def _capture(self, args: tuple) -> None:
+        inputs = tuple(a.clone() for a in args)
+        env = dict(zip(PIPELINE_ARGS, inputs))
+        graphs = []
+        with _CAPTURE_LOCK:
+            # a graph destroyed in this thread during a capture ends it: free
+            # the garbage first, and let no collection run inside
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                pool = _CudaStageGraph.new_pool()
+                for stage in self.stages:
+                    with _build.launches_recorded() as launches, counts_recorded() as counts:
+                        graph = _CudaStageGraph(stage.run, env, pool)
+                    env.update(graph.out)
+                    graphs.append((graph, launches, counts))
+                    current_count("pose.graph_captures")
+            finally:
+                if collecting:
+                    gc.enable()
+        self.inputs, self._env, self._graphs = inputs, env, tuple(graphs)
+
+
 class MamriEngine:
     def __init__(
         self,
@@ -174,6 +337,7 @@ class MamriEngine:
         self.last_estimated_steps: Optional[np.ndarray] = None
         self.hardware = None  # HardwareStack, attached on demand
         self._pipeline_cache = _LRUCache(jit_cache_size)
+        self._restarts: Dict[int, torch.Tensor] = {}  # the IK's restart draws by count (`_restart_guesses`)
 
     def load_state_from_numpy(self, baseplate_tf=None, saved_baseplate=None, current_angles=None) -> None:
         """Take over engine state from another engine (e.g. mamri_tpu's)."""
@@ -455,11 +619,13 @@ class MamriEngine:
                 self.saved_baseplate = np.asarray(f["saved_baseplate"], dtype=np.float32)
 
     # ---------------------------------------------------------------- compute core
-    def pipeline_fn(self, seg_params: Optional[SegmentationParams] = None, seg_fn=None):
+    def pipeline_fn(self, seg_params: Optional[SegmentationParams] = None, seg_fn=None) -> "_Pipeline":
         """The per-volume program: segmentation -> matching -> baseplate ->
-        full-chain IK -> steps. Takes and returns tensors on the engine's
-        device (a dict with the reference's keys). It queues its work and
-        reads nothing back, so a caller waits only where it fetches.
+        full-chain IK -> steps, as three stages over one dict of tensors
+        (`_Pipeline`). Called with `PIPELINE_ARGS` on the engine's device, it
+        runs the stages eagerly and returns their outputs (a dict with the
+        reference's keys). It queues its work and reads nothing back, so a
+        caller waits only where it fetches.
 
         `seg_fn` replaces the segmentation stage (the signature of
         `segment_volume`): the mesh's sharded path puts
@@ -471,11 +637,14 @@ class MamriEngine:
         arm_lengths = self._arm_lengths
         bp_local = model.marker_local[model.link_index("Baseplate")]
         ik_iters, ik_restarts = self.ik_iters, self.ik_restarts
+        restarts = self._restart_guesses(ik_restarts)
         match_mode = self.match_mode
 
-        def pipeline(data, spacing, origin, saved_tf, use_saved, have_saved, apply_correction, current_angles):
-            with current_span("pose.segment"):
-                seg = seg_fn(data, spacing, origin, seg_params)
+        def segment(v):
+            return {"seg": seg_fn(v["data"], v["spacing"], v["origin"], seg_params)}
+
+        def match(v):
+            seg = v["seg"]
             if match_mode == "global":
                 matches = match_l_shaped_triplets_global(seg.centroids_ras, seg.blob_valid, arm_lengths)
             else:
@@ -489,7 +658,8 @@ class MamriEngine:
             detected_tf = kabsch_rigid_transform(bp_local, bp_pts)
 
             # priority: saved-if-requested > detected > saved fallback
-            use_saved_now = use_saved & have_saved
+            saved_tf, have_saved = v["saved_tf"], v["have_saved"]
+            use_saved_now = v["use_saved"] & have_saved
             fallback_saved = ~bp_found & have_saved
             base_tf = torch.where(use_saved_now, saved_tf, torch.where(bp_found, detected_tf, saved_tf))
             base_ok = use_saved_now | bp_found | fallback_saved
@@ -497,30 +667,38 @@ class MamriEngine:
             source = torch.where(
                 use_saved_now, 2, torch.where(bp_found, 1, torch.where(fallback_saved, 3, 0))
             ).to(torch.int32)
-            with current_span("pose.ik"):
-                ik = solve_full_chain_ik(
-                    model,
-                    matches.points[3],
-                    base_tf,
-                    current_angles=current_angles,
-                    apply_correction=apply_correction,
-                    joint4_targets=matches.points[2],
-                    joint4_found=matches.found[2],
-                    num_iters=ik_iters,
-                    num_random_restarts=ik_restarts,
-                    joint2_targets=matches.points[1],
-                    joint2_found=matches.found[1],
-                )
-                steps = angles_to_steps(ik.angles, model.steps_per_rev)
+            return {"matches": matches, "base_tf": base_tf, "base_ok": base_ok, "base_source": source}
+
+        def ik(v):
+            matches = v["matches"]
+            ik = solve_full_chain_ik(
+                model,
+                matches.points[3],
+                v["base_tf"],
+                current_angles=v["current_angles"],
+                apply_correction=v["apply_correction"],
+                joint4_targets=matches.points[2],
+                joint4_found=matches.found[2],
+                num_iters=ik_iters,
+                num_random_restarts=ik_restarts,
+                joint2_targets=matches.points[1],
+                joint2_found=matches.found[1],
+                restart_guesses=restarts,
+            )
+            steps = angles_to_steps(ik.angles, model.steps_per_rev)
+            return {"ik": ik, "steps": steps, "success": v["base_ok"] & matches.found[3]}
+
+        def outputs(v):
+            seg, ik = v["seg"], v["ik"]
             return {
-                "success": base_ok & matches.found[3],
+                "success": v["success"],
                 "angles": ik.angles,
-                "steps": steps,
+                "steps": v["steps"],
                 "rmse": ik.rmse,
-                "base_tf": base_tf,
-                "base_ok": base_ok,
-                "base_source": source,
-                "markers_found": matches.found,
+                "base_tf": v["base_tf"],
+                "base_ok": v["base_ok"],
+                "base_source": v["base_source"],
+                "markers_found": v["matches"].found,
                 "num_blobs": seg.num_blobs,
                 "body_mask": seg.body_mask,
                 "body_found": seg.body_found,
@@ -534,7 +712,20 @@ class MamriEngine:
                 "seg_compact_ok": seg.compact_ok,
             }
 
-        return pipeline
+        return _Pipeline(
+            (_Stage("pose.segment", segment), _Stage(None, match), _Stage("pose.ik", ik)), outputs
+        )
+
+    def _restart_guesses(self, count: int) -> Optional[torch.Tensor]:
+        """The pose IK's `count` random restarts on the engine's device,
+        `random_restart_guesses(model, count, 0)` drawn once per count, so no
+        pose copies them from the host; None for no restarts."""
+        if count <= 0:
+            return None
+        guesses = self._restarts.get(count)
+        if guesses is None:
+            guesses = self._restarts.setdefault(count, random_restart_guesses(self.model, count, 0))
+        return guesses
 
     def clear_caches(self) -> None:
         """Drop every cached pipeline."""
@@ -559,30 +750,39 @@ class MamriEngine:
         copied.synchronize()
         return {k: v.numpy().copy() for k, v in pinned.items()}
 
-    def _upload(self, v, dtype=None) -> torch.Tensor:
-        """A host value on the engine's device, queued without a wait: a copy
-        from pageable memory is staged before the call returns, so the host
-        array may change after it."""
-        return torch.as_tensor(v, dtype=dtype).to(self.device, non_blocking=True)
+    def _upload(self, v, dtype=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A host value on the engine's device (in `out` where given), queued
+        without a wait: a copy from pageable memory is staged before the call
+        returns, so the host array may change after it."""
+        host = torch.as_tensor(v, dtype=dtype)
+        if out is None:
+            return host.to(self.device, non_blocking=True)
+        return out.copy_(host, non_blocking=True)
 
-    def _pipeline_args(self, volume: Volume, use_saved_baseplate: bool, apply_correction: bool) -> tuple:
-        """The pipeline's arguments for one scan and the engine's state now
-        (span `pose.upload`, counter `pose.upload_bytes`)."""
+    def _pipeline_args(self, volume: Volume, use_saved_baseplate: bool, apply_correction: bool, into=None) -> tuple:
+        """The pipeline's arguments (`PIPELINE_ARGS`) for one scan and the
+        engine's state now (span `pose.upload`, counter
+        `pose.upload_bytes`): new tensors, or `into` with the values copied
+        in (a graph's static inputs)."""
         saved = self.saved_baseplate if self.saved_baseplate is not None else np.eye(4, dtype=np.float32)
         f32 = torch.float32
+        host = (
+            (volume.data, None),
+            (volume.spacing, f32),
+            (volume.origin, f32),
+            (saved, f32),
+            (bool(use_saved_baseplate), None),
+            (self.saved_baseplate is not None, None),
+            (bool(apply_correction), None),
+            (self.current_angles, f32),
+        )
         with current_span("pose.upload"):
-            args = (
-                self._upload(volume.data),
-                self._upload(volume.spacing, f32),
-                self._upload(volume.origin, f32),
-                self._upload(saved, f32),
-                self._upload(bool(use_saved_baseplate)),
-                self._upload(self.saved_baseplate is not None),
-                self._upload(bool(apply_correction)),
-                self._upload(self.current_angles, f32),
-            )
+            if into is None:
+                args = tuple(self._upload(v, dtype) for v, dtype in host)
+            else:
+                args = tuple(self._upload(v, dtype, out) for (v, dtype), out in zip(host, into))
         current_count("pose.upload_bytes", sum(a.nbytes for a in args))
-        return args
+        return into if into is not None else args
 
     @staticmethod
     def _escalate_seg_params(
@@ -649,57 +849,80 @@ class MamriEngine:
         keep_segmentation: bool = True,
     ) -> PoseEstimate:
         """Scan -> pose (the reference's `process()`), escalating the
-        segmentation budgets until every certificate holds. Under an enabled
+        segmentation budgets until every certificate holds. On a card each
+        cached pipeline is dispatched by its `_StageGraphs`: eager on its
+        first call, replayed as CUDA graphs from its second, the scan
+        uploaded straight into the graphs' static inputs. Under an enabled
         tracer the call is one request: the root span `estimate_pose` (the
         upload included), `pose.upload`, per attempt `pose.segment`,
         `pose.ik` and `pose.fetch` (and the body mask's `pose.fetch`), and
-        the counters `pose.upload_bytes` and `pose.attempts`."""
+        the counters `pose.upload_bytes`, `pose.attempts`,
+        `pose.eager_stages`, `pose.graph_captures` and `pose.graph_replays`."""
         with self.tracer.span("estimate_pose"):
-            args = self._pipeline_args(volume, use_saved_baseplate, apply_correction)
-            params = self.seg_params
-            while True:
-                current_count("pose.attempts")
-                dev_out = self._get_pipeline(volume.shape, params)(*args)
-                # ONE host sync per attempt: certificates and results come back
-                # together; the body mask only once certification settles, and
-                # only when the caller keeps the segmentation
-                mask = dev_out.pop("body_mask")
-                with current_span("pose.fetch"):
-                    out = self._fetch(dev_out)
-                certs = {k: bool(out[k]) for k in _CERTIFICATES}
-                converged, complete, blobs_ok = (
-                    certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
+            # the locks of the graphs whose static buffers this call uses, held until its last fetch
+            with contextlib.ExitStack() as held:
+                params = self.seg_params
+                graphs = self._stage_graphs(volume, params, held)
+                args = self._pipeline_args(
+                    volume, use_saved_baseplate, apply_correction, into=graphs.inputs if graphs is not None else None
                 )
-                if converged and complete and blobs_ok:
-                    break
-                stronger = self._escalate_seg_params(
-                    params, converged, complete, blobs_ok,
-                    count_ok=certs["seg_count_ok"],
-                    cand_ok=certs["seg_cand_ok"],
-                    runs_ok=certs["seg_runs_ok"],
-                    compact_ok=certs["seg_compact_ok"],
-                    jnp_path=params.use_pallas is False,
-                )
-                if stronger is None:
-                    logger.warning(
-                        "segmentation uncertified at strongest settings "
-                        "(converged=%s, roots_complete=%s, blobs_complete=%s, num_components=%d)",
-                        converged, complete, blobs_ok, int(out["num_components"]),
+                while True:
+                    current_count("pose.attempts")
+                    if graphs is not None:
+                        dev_out = graphs.run(args)
+                    else:
+                        dev_out = self._get_pipeline(volume.shape, params)(*args)
+                    # ONE host sync per attempt: certificates and results come back
+                    # together; the body mask only once certification settles, and
+                    # only when the caller keeps the segmentation
+                    mask = dev_out.pop("body_mask")
+                    with current_span("pose.fetch"):
+                        out = self._fetch(dev_out)
+                    certs = {k: bool(out[k]) for k in _CERTIFICATES}
+                    converged, complete, blobs_ok = (
+                        certs["seg_converged"], certs["roots_complete"], certs["blobs_complete"]
                     )
-                    break
-                logger.warning(
-                    "segmentation escalation: converged=%s roots_complete=%s "
-                    "blobs_complete=%s num_components=%d -> passes=%s "
-                    "max_sweeps=%d max_roots=%d max_blobs=%d exhaustive=%s",
-                    converged, complete, blobs_ok, int(out["num_components"]),
-                    stronger.passes, stronger.max_sweeps, stronger.max_roots,
-                    stronger.max_blobs, stronger.exhaustive_roots,
-                )
-                params = stronger
-            if keep_segmentation:
-                with current_span("pose.fetch"):
-                    out.update(self._fetch({"body_mask": mask}))
+                    if converged and complete and blobs_ok:
+                        break
+                    stronger = self._escalate_seg_params(
+                        params, converged, complete, blobs_ok,
+                        count_ok=certs["seg_count_ok"],
+                        cand_ok=certs["seg_cand_ok"],
+                        runs_ok=certs["seg_runs_ok"],
+                        compact_ok=certs["seg_compact_ok"],
+                        jnp_path=params.use_pallas is False,
+                    )
+                    if stronger is None:
+                        logger.warning(
+                            "segmentation uncertified at strongest settings "
+                            "(converged=%s, roots_complete=%s, blobs_complete=%s, num_components=%d)",
+                            converged, complete, blobs_ok, int(out["num_components"]),
+                        )
+                        break
+                    logger.warning(
+                        "segmentation escalation: converged=%s roots_complete=%s "
+                        "blobs_complete=%s num_components=%d -> passes=%s "
+                        "max_sweeps=%d max_roots=%d max_blobs=%d exhaustive=%s",
+                        converged, complete, blobs_ok, int(out["num_components"]),
+                        stronger.passes, stronger.max_sweeps, stronger.max_roots,
+                        stronger.max_blobs, stronger.exhaustive_roots,
+                    )
+                    params = stronger
+                    graphs = self._stage_graphs(volume, params, held)
+                if keep_segmentation:
+                    with current_span("pose.fetch"):
+                        out.update(self._fetch({"body_mask": mask}))
             return self._finish_estimate(out, volume, store_state, keep_segmentation)
+
+    def _stage_graphs(self, volume: Volume, params: SegmentationParams, held: contextlib.ExitStack):
+        """The graph dispatch (`_StageGraphs`) of the cached pipeline for
+        `volume`'s shape and dtype at `params`, its lock taken into `held`;
+        None off the card, where `estimate_pose` runs the pipeline eagerly."""
+        if not _graphs_run_on(self.device):
+            return None
+        graphs = self._get_pipeline(volume.shape, params).stage_graphs(torch.as_tensor(volume.data).dtype)
+        held.enter_context(graphs.lock)
+        return graphs
 
     def estimate_pose_async(
         self,

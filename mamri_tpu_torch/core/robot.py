@@ -67,6 +67,12 @@ class RobotModel:
         return self.fixed_offsets.device
 
     @functools.cached_property
+    def limit_rows(self) -> torch.Tensor:
+        """(2, J) lower and upper joint limits, each row contiguous, made once
+        (the pose IK reads them on every call, a captured graph by address)."""
+        return self.limits_rad.T.contiguous()
+
+    @functools.cached_property
     def fixed_offsets_host(self) -> np.ndarray:
         """(L, 4, 4) float64 host copy of `fixed_offsets`, read once."""
         return self.fixed_offsets.cpu().numpy().astype(np.float64)

@@ -128,15 +128,16 @@ def solve_full_chain_ik(
 
     Random restarts are drawn uniformly in 0.8 x the joint limits from a CPU
     `torch.Generator` seeded with `restart_seed` (the same guesses on every
-    device). `restart_guesses` (R, J) replaces those draws, e.g. with another
-    implementation's exact guesses in a parity test."""
+    device). `restart_guesses` (R, J) replaces those draws: the engine's own
+    draws, made once (a captured graph copies nothing from the host), or
+    another implementation's exact guesses in a parity test."""
     dev = model.device
     nj = model.num_joints
     false = torch.zeros((), dtype=torch.bool, device=dev)
     apply_correction = false if apply_correction is None else apply_correction
     if current_angles is None:
         current_angles = torch.zeros(nj, dtype=torch.float32, device=dev)
-    lower, upper = model.limits_rad.T.contiguous()
+    lower, upper = model.limit_rows
     guesses = [torch.stack([current_angles, torch.zeros_like(current_angles)])]
     if use_analytic_seeds and chain_is_analytic(model):
         frame = joint6_frame_from_markers(model, joint6_targets, apply_correction)

@@ -7,7 +7,8 @@ Port of `mamri_tpu/registration/lshape.py`: `_combo_table`,
 greedy per-link consumption of blob ids is reproduced with masked
 argmin/argmax. `torch.argmax`/`argmin` return the first index among ties, as
 `jnp` does (bools are cast to int first). The combination tables are built
-once per (K, device).
+once per (K, device) and kept for the process: a captured CUDA graph reads
+them by address.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def _combo_table(k: int) -> np.ndarray:
     return np.asarray(list(itertools.combinations(range(k), 3)), dtype=np.int64).reshape(-1, 3)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _device_tables(k: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(combos (C, 3) int64, members (C, ceil(k/64)) int64) on `device`, made
     once per (k, device): the combination table, and each combination's
@@ -47,7 +48,7 @@ def _device_tables(k: int, device: torch.device) -> Tuple[torch.Tensor, torch.Te
     return torch.as_tensor(combos, device=device), torch.as_tensor(members.view(np.int64), device=device)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)
 def _assignment_table(options: int, links: int, device: torch.device) -> torch.Tensor:
     """(options**links, links) int64 on `device`: row a holds the digits of
     a in base `options`, link 0 the least significant (the reference's

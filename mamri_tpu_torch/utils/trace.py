@@ -19,7 +19,9 @@ return one shared no-op context. While a `torch.profiler` session records,
 every enabled span is also a `record_function` event of its name, on the
 profiler's own timeline. Records and the durations behind `stats` are kept
 in bounded buffers (`MAX_RECORDS` each, the oldest dropped first and counted
-in `dropped`).
+in `dropped`). Inside `counts_recorded` the thread's `current_count`s go to
+the dict it yields and to no tracer: a CUDA graph capture runs code that
+counts what it queues, and each replay of the graph adds what was recorded.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ class SpanRecord(NamedTuple):
 
 
 _CURRENT: ContextVar[Optional["Tracer"]] = ContextVar("mamri_tpu_torch_current_tracer", default=None)
+_RECORDED: ContextVar[Optional[Dict[str, float]]] = ContextVar("mamri_tpu_torch_recorded_counts", default=None)
 _NOOP = contextlib.nullcontext()
 
 
@@ -226,10 +229,27 @@ def current_span(name: str):
 
 
 def current_count(name: str, n=1) -> None:
-    """`count(name, n)` on the tracer of the request this code runs in."""
+    """`count(name, n)` on the tracer of the request this code runs in, or,
+    inside `counts_recorded`, into its record."""
+    recorded = _RECORDED.get()
+    if recorded is not None:
+        recorded[name] = recorded.get(name, 0) + n
+        return
     t = _CURRENT.get()
     if t is not None and t.enabled:
         t.count(name, n)
+
+
+@contextlib.contextmanager
+def counts_recorded():
+    """Within the block, this thread's `current_count`s add to the dict this
+    yields and to no tracer (a graph capture's counts)."""
+    recorded: Dict[str, float] = {}
+    token = _RECORDED.set(recorded)
+    try:
+        yield recorded
+    finally:
+        _RECORDED.reset(token)
 
 
 @contextlib.contextmanager

@@ -810,3 +810,218 @@ def test_kabsch_launches_twice_a_pose(cuda, monkeypatch):
     assert eng.estimate_pose(vol).success
     assert eng.tracer.counters["pose.attempts"] == 1
     assert _build.LAUNCHES["kabsch"] == 2 and eng.tracer.counters["registration.kabsch_fused"] == 2
+
+
+# ------------------------------------------------------------ the pose pipeline as CUDA graphs (api/engine)
+GRAPH_CERTS = ("seg_converged", "roots_complete", "blobs_complete", "seg_count_ok", "seg_cand_ok", "seg_runs_ok",
+               "seg_compact_ok")
+
+
+def _eager(monkeypatch, fn):
+    """`fn()` with every engine running its pipelines eagerly on the card."""
+    from mamri_tpu_torch.api import engine as E
+
+    with monkeypatch.context() as m:
+        m.setattr(E, "_graphs_run_on", lambda device: False)
+        return fn()
+
+
+def _pose_answer(eng, volume, **kw):
+    """`estimate_pose` from the zero pose: angles, steps, RMSE, base, markers
+    and, where the segmentation is kept, the body mask and every
+    certificate."""
+    eng.zero_robot()
+    est = eng.estimate_pose(volume, **kw)
+    got = {"success": est.success, "angles": est.angles_rad, "steps": est.steps, "rmse": est.rmse_mm,
+           "base_tf": est.baseplate_tf, "markers": est.markers_found}
+    if kw.get("keep_segmentation", True):
+        seg = eng.last_segmentation
+        got.update(body_mask=seg["body_mask"], **{c: bool(seg[c]) for c in GRAPH_CERTS})
+    return got
+
+
+def _assert_same_pose(got, want, what):
+    assert got.keys() == want.keys(), what
+    for key in want:
+        if isinstance(want[key], np.ndarray):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{what}: {key}")
+        else:
+            assert got[key] == want[key], f"{what}: {key}"
+
+
+def _bench_volumes(size, dtype=np.float32):
+    from mamri_tpu_torch.api.demo import bench_scenes, render_bench_scene
+    from mamri_tpu_torch.core.robot import load_robot_model
+
+    from mamri_tpu_torch.perception.volume import Volume
+
+    scenes, spacing, origin, body_center = bench_scenes(load_robot_model(device="cpu"), size)
+    vols = [render_bench_scene(s[2], (size,) * 3, spacing, origin, body_center) for s in scenes]
+    return [Volume(data=np.asarray(v.data).astype(dtype), spacing=v.spacing, origin=v.origin) for v in vols]
+
+
+def _graph_counts(tracer):
+    return tuple(tracer.counters.get(c, 0) for c in ("pose.eager_stages", "pose.graph_captures", "pose.graph_replays"))
+
+
+def test_replayed_pose_equals_eager_on_the_bench_scenes(cuda, monkeypatch):
+    """bench.py's four scenes at 256^3, three rounds through one engine (the
+    first call eager, the second captured, every later one replayed): each
+    pose is bit for bit an eager engine's (angles, steps, RMSE, base, markers,
+    body mask, every certificate)."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    vols = _bench_volumes(256)
+    ref = MamriEngine(device=cuda)
+    want = [_eager(monkeypatch, lambda v=v: _pose_answer(ref, v)) for v in vols]
+    eng = MamriEngine(device=cuda, tracer=Tracer())
+    for rnd in range(3):
+        for i, v in enumerate(vols):
+            _assert_same_pose(_pose_answer(eng, v), want[i], f"round {rnd}, scene {i}")
+    assert all(w["success"] for w in want)
+    assert _graph_counts(eng.tracer) == (3, 3, 3 * (3 * len(vols) - 1))
+
+
+def test_replayed_roi_frames_equal_eager(cuda, monkeypatch):
+    """`PoseTracker` with a 40 mm ROI over int16 frames of a slow drift: every
+    frame's pose through the window's graphs is bit for bit an eager
+    tracker's, and every frame after the anchor is served from the window."""
+    from mamri_tpu_torch.api.demo import DEMO_ANGLES, bench_scenes, render_bench_scene
+    from mamri_tpu_torch.api.engine import MARKER_LINKS, MamriEngine
+    from mamri_tpu_torch.api.streaming import PoseTracker
+    from mamri_tpu_torch.core.robot import load_robot_model, marker_world_positions
+    from mamri_tpu_torch.perception.volume import Volume
+
+    model = load_robot_model(device="cpu")
+    scenes, spacing, origin, body_center = bench_scenes(model, 256)
+    base = torch.as_tensor(scenes[0][1])
+    frames = []
+    for k in range(8):
+        angles = torch.tensor(DEMO_ANGLES) + 0.01 * k
+        pts = torch.cat([marker_world_positions(model, angles, ln, base) for ln in MARKER_LINKS]).numpy()
+        vol = render_bench_scene(pts, (256,) * 3, spacing, origin, body_center)
+        frames.append(Volume(data=np.round(np.asarray(vol.data)).astype(np.int16), spacing=vol.spacing,
+                             origin=vol.origin))
+
+    def track(tracker):
+        out = []
+        for f in frames:
+            est = tracker.step(f)
+            out.append({"success": est.success, "angles": est.angles_rad, "steps": est.steps, "rmse": est.rmse_mm,
+                        "base_tf": est.baseplate_tf, "markers": est.markers_found})
+        return out
+
+    ref = PoseTracker(MamriEngine(device=cuda), roi_margin_mm=40)
+    want = _eager(monkeypatch, lambda: track(ref))
+    tracker = PoseTracker(MamriEngine(device=cuda), roi_margin_mm=40)
+    got = track(tracker)
+    for k, (g, w) in enumerate(zip(got, want)):
+        _assert_same_pose(g, w, f"frame {k}")
+    assert tracker.roi_frames == ref.roi_frames == len(frames) - 1 and tracker.roi_fallbacks == 0
+
+
+def test_replays_of_two_alternating_shapes_equal_eager(cuda, monkeypatch):
+    """Two shapes (256^3 and 192^3 scenes) in turns: each shape's graphs give
+    each call its eager pose."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+
+    vols = [_bench_volumes(256)[0], _bench_volumes(192)[1]]
+    ref = MamriEngine(device=cuda)
+    want = [_eager(monkeypatch, lambda v=v: _pose_answer(ref, v)) for v in vols]
+    eng = MamriEngine(device=cuda)
+    for k in range(6):
+        _assert_same_pose(_pose_answer(eng, vols[k % 2]), want[k % 2], f"call {k}")
+    assert len(eng._pipeline_cache) == 2
+
+
+def test_replayed_escalation_equals_eager(cuda, monkeypatch):
+    """Starved CCL sweeps escalate every call to a second params key, whose
+    graphs (eager, captured, replayed, as the first key's) read the scan
+    copied from the first key's static inputs: poses bit for bit eager."""
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    params = S.SegmentationParams(max_sweeps=1, max_roots=128)
+    vols = _bench_volumes(256)[:3]
+    ref = MamriEngine(device=cuda, seg_params=params)
+    want = [_eager(monkeypatch, lambda v=v: _pose_answer(ref, v)) for v in vols]
+    eng = MamriEngine(device=cuda, seg_params=params, tracer=Tracer())
+    for k in range(5):
+        _assert_same_pose(_pose_answer(eng, vols[k % 3]), want[k % 3], f"call {k}")
+    assert eng.tracer.counters["pose.attempts"] == 10
+    assert _graph_counts(eng.tracer) == (6, 6, 24)
+
+
+def test_two_threads_on_one_engine_get_their_own_poses(cuda, monkeypatch):
+    """Two threads calling one engine at one shape, each its own scene, six
+    times: each replay's pose is its own scene's eager pose."""
+    import threading
+
+    from mamri_tpu_torch.api.engine import MamriEngine
+
+    vols = _bench_volumes(256)[:2]
+    ref = MamriEngine(device=cuda)
+    want = [_eager(monkeypatch, lambda v=v: _pose_answer(ref, v, store_state=False, keep_segmentation=False))
+            for v in vols]
+    eng = MamriEngine(device=cuda)
+    errors = []
+
+    def worker(i):
+        try:
+            for k in range(6):
+                got = _pose_answer(eng, vols[i], store_state=False, keep_segmentation=False)
+                _assert_same_pose(got, want[i], f"thread {i}, call {k}")
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+
+
+def test_replayed_call_has_no_host_sync_and_counts_its_launches(cuda, monkeypatch):
+    """A replayed `estimate_pose` under the sync debug mode reports no
+    synchronizing call from the engine or the pipeline's modules, and adds
+    to `_build.LAUNCHES` exactly what an eager call launches (the captures'
+    records, once a replay)."""
+    import warnings
+
+    from mamri_tpu_torch.api.engine import MamriEngine
+    from mamri_tpu_torch.utils.trace import Tracer
+
+    vol = _bench_volumes(256)[0]
+    ref = MamriEngine(device=cuda)
+    _eager(monkeypatch, lambda: ref.estimate_pose(vol))
+    _build.reset_launch_counts()
+    _eager(monkeypatch, lambda: ref.estimate_pose(vol))
+    eager_launches = dict(_build.LAUNCHES)
+    eng = MamriEngine(device=cuda, tracer=Tracer())
+    for _ in range(2):
+        eng.estimate_pose(vol)
+    graphs = eng._get_pipeline(vol.shape).stage_graphs(torch.float32)
+    recorded = {}
+    for _, launches, _ in graphs._graphs:
+        for name, n in launches.items():
+            recorded[name] = recorded.get(name, 0) + n
+    _build.reset_launch_counts()
+    before = _graph_counts(eng.tracer)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            assert eng.estimate_pose(vol).success
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tuple(a - b for a, b in zip(_graph_counts(eng.tracer), before)) == (0, 0, 3)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    pipeline = ("api/engine.py", "registration/lshape.py", "registration/kabsch.py", "ik/residuals.py", "ik/lm.py",
+                "ik/fused_lm.py", "perception/segmentation.py")
+    assert not [s for s in syncs if s.rsplit(":", 1)[0].replace("\\", "/").endswith(pipeline)], syncs
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == recorded == {k: v for k, v in eager_launches.items() if v}
+    assert launched["full_chain_lm"] == 1 and launched["kabsch"] == 2
